@@ -1,0 +1,395 @@
+"""AR-DAE implicit-VAE trainer CLI (JAX twin: ardae_tpu/cli/ivae_ardae.py).
+
+The whole reference flag surface parses (reference ivae_ardae.py:32-196).
+The port's first slice trains the flagship line (resconv-res / resconvct-res
+with an mlp-res or mlp-grad cdae on the MNIST family), with ``--use-kernels``
+selecting the hand-written fused DSM kernel for phase A. Flags and cadences
+the slice does not cover raise NotImplementedError naming their ROADMAP item
+whenever the run would use them; none is ignored in silence.
+
+Device: ``--no-cuda`` selects the CPU, as in the reference; otherwise the
+run needs a CUDA device and raises without one.
+"""
+
+import argparse
+import glob
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def build_parser():
+    p = argparse.ArgumentParser()
+    p.add_argument("--dataset", default="swissroll",
+                   choices=["swissroll", "25gaussians", "sbmnist", "dbmnist",
+                            "dbmnist-val5k"])
+    p.add_argument("--model", default="mlp-concat",
+                   choices=["mlp-concat", "mnist-concat", "mnist-conv",
+                            "resconv", "resconvct", "resconv-res", "resconvct-res",
+                            "resconv-res2", "resconvct-res2", "resconvct-res3",
+                            "resconvct-res4",
+                            "auxmlp", "auxmnist", "auxconv",
+                            "auxresconv", "auxresconvct", "auxresconv-clip",
+                            "auxresconvct-clip"])
+    p.add_argument("--model-z-dim", type=int, default=2)
+    p.add_argument("--model-h-dim", type=int, default=128)
+    p.add_argument("--model-n-dim", type=int, default=2)
+    p.add_argument("--model-n-layers", type=int, default=2)
+    p.add_argument("--model-nonlin", default="relu")
+    p.add_argument("--model-clip-z0-logvar", default="none", choices=["none"])
+    p.add_argument("--model-clip-z-logvar", default="none", choices=["none"])
+    p.add_argument("--cdae", default="mlp", choices=["mlp", "mlp-res", "mlp-grad"])
+    p.add_argument("--cdae-h-dim", type=int, default=128)
+    p.add_argument("--cdae-n-layers", type=int, default=2)
+    p.add_argument("--cdae-nonlin", default="relu")
+    p.add_argument("--cdae-ctx-type", default="data",
+                   choices=["data", "lt0", "hidden1a"])
+    p.add_argument("--std-scale", type=float, default=1.0)
+    p.add_argument("--delta", type=float, default=1.0)
+    p.add_argument("--num-cdae-updates", type=int, default=1)
+    p.add_argument("--nheight", type=int, default=1)
+    p.add_argument("--nchannels", type=int, default=2)
+    p.add_argument("--m-lr", type=float, default=0.0001)
+    p.add_argument("--d-lr", type=float, default=0.0001)
+    p.add_argument("--d-lr-min", type=float, default=0.0001)
+    p.add_argument("--epochs", type=int, default=30)
+    p.add_argument("--train-batch-size", type=int, default=1024)
+    p.add_argument("--eval-batch-size", type=int, default=None)
+    p.add_argument("--start-epoch", type=int, default=1)
+    p.add_argument("--start-batch-idx", type=int, default=0)
+    p.add_argument("--train-nz-cdae", type=int, default=1)
+    p.add_argument("--train-nz-model", type=int, default=1)
+    p.add_argument("--train-nstd-cdae", type=int, default=1)
+    p.add_argument("--m-optimizer", default="adam",
+                   choices=["sgd", "adam", "amsgrad", "rmsprop"])
+    p.add_argument("--m-beta1", type=float, default=0.5)
+    p.add_argument("--m-momentum", type=float, default=0.5)
+    p.add_argument("--d-optimizer", default="adam",
+                   choices=["sgd", "adam", "amsgrad", "rmsprop"])
+    p.add_argument("--d-beta1", type=float, default=0.5)
+    p.add_argument("--d-momentum", type=float, default=0.5)
+    p.add_argument("--beta-init", type=float, default=1.0)
+    p.add_argument("--beta-fin", type=float, default=1.0)
+    p.add_argument("--beta-annealing", type=float, default=None)
+    p.add_argument("--eta-init", type=float, default=0.0)
+    p.add_argument("--eta-fin", type=float, default=0.0)
+    p.add_argument("--eta-annealing", type=float, default=None)
+    p.add_argument("--lmbd-init", type=float, default=0.0)
+    p.add_argument("--lmbd-fin", type=float, default=0.0)
+    p.add_argument("--lmbd-annealing", type=float, default=None)
+    p.add_argument("--iws-samples", type=int, default=512)
+    p.add_argument("--m-weight-avg", default="none",
+                   choices=["none", "swa", "polyak"])
+    p.add_argument("--m-weight-avg-start", type=int, default=1000)
+    p.add_argument("--m-weight-avg-decay", type=float, default=0.998)
+    p.add_argument("--train-mode", default="train", choices=["train", "final"])
+    p.add_argument("--no-cuda", action="store_true", default=False)
+    p.add_argument("--log-interval", type=int, default=100)
+    p.add_argument("--vis-interval", type=int, default=1000)
+    p.add_argument("--eval-iws-interval", type=int, default=1000)
+    p.add_argument("--ckpt-interval", type=int, default=10000)
+    p.add_argument("--sav-interval", type=int, default=0)
+    p.add_argument("--resume", dest="resume", action="store_true", default=True)
+    p.add_argument("--no-resume", dest="resume", action="store_false")
+    p.add_argument("--cache", default=None)
+    p.add_argument("--experiment", default=None)
+    p.add_argument("--exp-num", type=int, default=None)
+    # extensions of the JAX package (not in the reference surface)
+    p.add_argument("--data-root", default="data")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--toy-train-size", type=int, default=2_000_000)
+    p.add_argument("--max-iters", type=int, default=None,
+                   help="hard iteration cap (smoke tests)")
+    p.add_argument("--skip-final-test-eval", action="store_true", default=False,
+                   help="skip the post-training test-set IWS eval")
+    p.add_argument("--cdae-compute-dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--model-compute-dtype", default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--use-kernels", action="store_true", default=False,
+                   help="phase-A DSM loss through the hand-written fused "
+                        "Hopper kernel (res-style cdae; raises on a config "
+                        "the kernel does not cover)")
+    p.add_argument("--dp-devices", type=int, default=0)
+    p.add_argument("--sp-devices", type=int, default=0)
+    p.add_argument("--profile-dir", default=None)
+    return p
+
+
+def derive_experiment(opt):
+    """Config-as-string experiment identity (reference ivae_ardae.py:212-262)."""
+    parts = [
+        "m{}-mz{}-mh{}-mn{}-mnh{}-ma{}".format(
+            opt.model, opt.model_z_dim, opt.model_h_dim, opt.model_n_dim,
+            opt.model_n_layers,
+            "sfp" if opt.model_nonlin == "softplus" else opt.model_nonlin),
+        "d{}-dh{}-dnh{}-da{}-dct{}".format(
+            opt.cdae, opt.cdae_h_dim, opt.cdae_n_layers,
+            "sfp" if opt.cdae_nonlin == "softplus" else opt.cdae_nonlin,
+            opt.cdae_ctx_type),
+        ("m{}-bt1{}".format(opt.m_optimizer, opt.m_beta1)
+         if opt.m_optimizer in ("adam", "amsgrad")
+         else "m{}-mt{}".format(opt.m_optimizer, opt.m_momentum)),
+        "mlr{}".format(opt.m_lr),
+        ("d{}-bt1{}".format(opt.d_optimizer, opt.d_beta1)
+         if opt.d_optimizer in ("adam", "amsgrad")
+         else "d{}-mt{}".format(opt.d_optimizer, opt.d_momentum)),
+        "dlr{}".format(opt.d_lr),
+        "tbs{}".format(opt.train_batch_size),
+        "nd{}".format(opt.num_cdae_updates),
+        "mwa{}{}".format(
+            opt.m_weight_avg,
+            "-was{}-wad{}".format(opt.m_weight_avg_start, opt.m_weight_avg_decay)
+            if opt.m_weight_avg != "none" else ""),
+        "binit{}-bfin{}-bann{:d}".format(
+            opt.beta_init if opt.beta_init != opt.beta_fin else 1.0,
+            opt.beta_fin,
+            int(opt.beta_annealing)
+            if opt.beta_annealing is not None and opt.beta_init != opt.beta_fin
+            else 0),
+        "ssc{}".format(opt.std_scale),
+        "del{}".format(opt.delta),
+        "nzc{}{}".format(
+            opt.train_nz_cdae,
+            "-nzs{}".format(opt.train_nstd_cdae) if opt.train_nstd_cdae > 1 else ""),
+        "nzm{}".format(opt.train_nz_model),
+        "{}".format(opt.exp_num if opt.exp_num else 0),
+    ]
+    return "-".join(parts)
+
+
+_Q = "ROADMAP queue 1, "
+
+
+def _unsupported_cadences(opt, total_iters):
+    """The cadences a run of ``total_iters`` steps would reach that the port
+    does not have yet, each with the ROADMAP item that ports it."""
+    out = []
+    if opt.eval_iws_interval > 0 and total_iters >= opt.eval_iws_interval:
+        out.append(f"IWS eval (--eval-iws-interval {opt.eval_iws_interval}): "
+                   f"{_Q}slice 1 item 9")
+    if opt.ckpt_interval > 0 and total_iters >= opt.ckpt_interval:
+        out.append(f"checkpoints (--ckpt-interval {opt.ckpt_interval}): "
+                   f"{_Q}slice 1 item 9")
+    if opt.vis_interval > 0 and total_iters >= opt.vis_interval:
+        out.append(f"visualization (--vis-interval {opt.vis_interval}): "
+                   f"{_Q}slice 6 item 14")
+    return out
+
+
+def _unsupported_flags(opt):
+    """The flags of this run the port does not have yet, each with the
+    ROADMAP item that ports it."""
+    q = _Q
+    out = []
+    if opt.lmbd_init != 0.0 or opt.lmbd_fin != 0.0:
+        out.append("jacobian clamping (--lmbd-*) is dormant in the reference "
+                   "too: every model's jac_clamping_loss raises")
+    if opt.train_mode == "final":
+        out.append(f"--train-mode final: {q}slice 1 item 9 (checkpoint, final mode)")
+    if not opt.skip_final_test_eval:
+        out.append("the final test-set IWS eval (pass --skip-final-test-eval): "
+                   f"{q}slice 1 item 9")
+    if opt.m_weight_avg != "none":
+        out.append(f"--m-weight-avg {opt.m_weight_avg}: {q}slice 6 item 14")
+    if "bfloat16" in (opt.cdae_compute_dtype, opt.model_compute_dtype):
+        out.append("bf16 compute: ROADMAP queue 1 (after the fp32 slices)")
+    if opt.dp_devices > 1 or opt.sp_devices > 1:
+        out.append(f"--dp-devices/--sp-devices: {q}slice 7 item 15")
+    if opt.profile_dir is not None:
+        out.append("--profile-dir: ROADMAP queue 1 (profiling, with the bench)")
+    if opt.cdae == "mlp":
+        out.append("--cdae mlp (legacy reconstruction DAE) is unused by the "
+                   "reference driver; use mlp-res or mlp-grad")
+    return out
+
+
+def main(argv=None):
+    run(argv)
+    return 0
+
+
+def run(argv=None):
+    """Train as ``main`` does; returns (TrainState, experiment directory)."""
+    opt = build_parser().parse_args(argv)
+
+    from ardae_tpu_torch.cli.common import (
+        IndexStream,
+        chunk_until_boundary,
+        resolve_experiment_path,
+    )
+    from ardae_tpu_torch.core.annealing import annealing_func
+    from ardae_tpu_torch.data import get_dataset
+    from ardae_tpu_torch.io.logging import logging, make_writer
+    from ardae_tpu_torch.models.registry import (
+        build_cdae,
+        build_ivae_model,
+        context_dim_for,
+    )
+    from ardae_tpu_torch.train.optim import build_optimizer
+    from ardae_tpu_torch.train.state import create_train_state
+    from ardae_tpu_torch.train.step import StepConfig, train_chunk
+
+    missing = _unsupported_flags(opt)
+    if missing:
+        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+    if opt.no_cuda:
+        device = torch.device("cpu")
+    elif torch.cuda.is_available():
+        device = torch.device("cuda")
+        # the reference trains in full fp32; cuDNN would run convolutions in
+        # TF32 by default
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        raise RuntimeError("no CUDA device: pass --no-cuda to run on the CPU")
+
+    for name in ("beta_annealing", "eta_annealing", "lmbd_annealing"):
+        v = getattr(opt, name)
+        if v is None or v < 1:
+            setattr(opt, name, None)
+
+    # data first: the iteration count decides which cadences the run reaches
+    splits = get_dataset(opt.dataset, root=opt.data_root)
+    info = splits["info"]
+    train_np = splits["train"]
+    n_train = train_np.shape[0]
+    bs = opt.train_batch_size
+    steps_per_epoch = n_train // bs
+    total_iters = opt.epochs * steps_per_epoch
+    if opt.max_iters is not None:
+        total_iters = min(total_iters, opt.max_iters)
+    missing = _unsupported_cadences(opt, total_iters)
+    if missing:
+        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+
+    if opt.cache is None:
+        opt.cache = "experiments"
+    if opt.experiment is None:
+        opt.experiment = derive_experiment(opt)
+    opt.path = resolve_experiment_path(opt.cache, opt.experiment, opt.resume)
+    if opt.resume and glob.glob(os.path.join(opt.path, "*checkpoint*")):
+        raise NotImplementedError(
+            f"resuming from {opt.path}: ROADMAP queue 1, slice 1 item 9 "
+            "(checkpoint and resume); pass --no-resume")
+    logging(str(opt), path=opt.path)
+    writer = make_writer(opt.path)
+    if info.get("synthetic"):
+        logging(f"dataset {opt.dataset}: SYNTHETIC surrogate (no real files "
+                f"under {opt.data_root})", path=opt.path)
+    else:
+        logging(f"dataset {opt.dataset}: real files from {opt.data_root}",
+                path=opt.path)
+    logging(f"device: {device}"
+            + (f" ({torch.cuda.get_device_name(device)})"
+               if device.type == "cuda" else ""), path=opt.path)
+
+    model = build_ivae_model(
+        opt.model, nchannels=opt.nchannels, nheight=opt.nheight,
+        z_dim=opt.model_z_dim, h_dim=opt.model_h_dim, n_dim=opt.model_n_dim,
+        n_layers=opt.model_n_layers, nonlin=opt.model_nonlin,
+        seed=2 * opt.seed, device=device)
+    ctx_dim = context_dim_for(
+        opt.cdae_ctx_type, model_name=opt.model, nchannels=opt.nchannels,
+        nheight=opt.nheight, z_dim=opt.model_z_dim, h_dim=opt.model_h_dim)
+    cdae = build_cdae(opt.cdae, input_dim=opt.model_z_dim, context_dim=ctx_dim,
+                      h_dim=opt.cdae_h_dim, n_layers=opt.cdae_n_layers,
+                      nonlin=opt.cdae_nonlin, seed=2 * opt.seed + 1,
+                      device=device)
+    logging(f"model params: {sum(p.numel() for p in model.parameters()):,}",
+            path=opt.path)
+    logging(f"cdae params: {sum(p.numel() for p in cdae.parameters()):,}",
+            path=opt.path)
+
+    # reference quirk: the model's rmsprop takes d_momentum (ivae_ardae.py:554)
+    opt_m = build_optimizer(opt.m_optimizer, model.parameters(), opt.m_lr,
+                            beta1=opt.m_beta1, momentum=opt.d_momentum)
+    opt_d = build_optimizer(opt.d_optimizer, cdae.parameters(), opt.d_lr,
+                            beta1=opt.d_beta1, momentum=opt.d_momentum)
+    state = create_train_state(model, opt_m, cdae, opt_d)
+    cfg = StepConfig(
+        std_scale=opt.std_scale, delta=opt.delta,
+        num_cdae_updates=opt.num_cdae_updates,
+        train_nz_cdae=opt.train_nz_cdae, train_nstd_cdae=opt.train_nstd_cdae,
+        train_nz_model=opt.train_nz_model, ctx_type=opt.cdae_ctx_type,
+        use_kernels=opt.use_kernels)
+    if opt.train_nz_cdae < 2:
+        logging("| warning: --train-nz-cdae < 2 makes the per-item sigma "
+                "estimate (sample std over nz) NaN, as in the reference; use "
+                "--train-nz-cdae >= 2.", path=opt.path)
+
+    def beta_fn(step):
+        return annealing_func(opt.beta_init, opt.beta_fin, opt.beta_annealing, step)
+
+    generator = torch.Generator(device=device).manual_seed(opt.seed)
+    data_dev = torch.as_tensor(train_np, device=device)
+    stream = IndexStream(n_train, bs, seed=opt.seed + 1)
+    binarize = bool(info.get("binarize", False))
+
+    i_ep = 0
+    start_time = time.time()
+    try:
+        while i_ep < total_iters:
+            k = chunk_until_boundary(i_ep, [opt.log_interval])
+            k = min(k, total_iters - i_ep)
+            c_idx = stream.take(k * opt.num_cdae_updates).reshape(
+                k, opt.num_cdae_updates, bs)
+            m_idx = stream.take(k)
+            metrics = train_chunk(state, cfg, data_dev, c_idx, m_idx, generator,
+                                  beta_fn, binarize=binarize)
+            i_ep += k
+            epoch = (i_ep - 1) // steps_per_epoch + 1
+            batch_idx = (i_ep - 1) % steps_per_epoch + 1
+            if i_ep % opt.log_interval == 0:
+                m = {kk: float(v) for kk, v in metrics.items()}
+                if not all(np.isfinite(v) for v in m.values()):
+                    logging("| NaN/Inf training metrics at iter "
+                            f"{i_ep} — halting training early: "
+                            + ", ".join(f"{kk}={vv}" for kk, vv in m.items()),
+                            path=opt.path)
+                    break
+                beta = float(beta_fn(i_ep - 1))
+                elapsed = time.time() - start_time
+                logging(
+                    "| iter {:d} | epoch {:3d} | {:5d}/{:5d} | ms/step {:5.2f} "
+                    "| dlr {:.5f} | (eff) std {:5.3f} | (true) std {:5.3f} "
+                    "| (eff) max std {:5.3f} | (eff) min std {:5.3f} "
+                    "| beta {:5.3f} | loss (vae) {:5.3f} | loss (recon) {:5.3f} "
+                    "| loss (prior) {:5.3f} | loss (cdae) {:5.4f} ".format(
+                        i_ep, epoch, batch_idx, steps_per_epoch,
+                        elapsed * 1000 / opt.log_interval, opt.d_lr,
+                        m["std_eff_mean"], m["std_eff_mean"] / opt.std_scale,
+                        m["std_eff_max"], m["std_eff_min"], beta,
+                        m["model_loss"], m["recon_loss"], m["prior_loss"],
+                        m["cdae_loss"]),
+                    path=opt.path)
+                mode = opt.train_mode
+                writer.add_scalar(f"{mode}/model/loss/step", m["model_loss"], i_ep)
+                writer.add_scalar(f"{mode}/model/recon/step", m["recon_loss"], i_ep)
+                writer.add_scalar(f"{mode}/model/prior/step", m["prior_loss"], i_ep)
+                writer.add_scalar(f"{mode}/model/beta/step", beta, i_ep)
+                writer.add_scalar(f"{mode}/cdae/loss/step", m["cdae_loss"], i_ep)
+                writer.add_scalar(f"{mode}/cdae/std/eff/mean/step",
+                                  m["std_eff_mean"], i_ep)
+                writer.add_scalar(f"{mode}/cdae/std/true/mean/step",
+                                  m["std_eff_mean"] / opt.std_scale, i_ep)
+                writer.add_scalar(f"{mode}/cdae/std/eff/max/step",
+                                  m["std_eff_max"], i_ep)
+                writer.add_scalar(f"{mode}/cdae/std/eff/min/step",
+                                  m["std_eff_min"], i_ep)
+                writer.add_scalar(f"{mode}/cdae/lr/step", opt.d_lr, i_ep)
+                start_time = time.time()
+    except KeyboardInterrupt:
+        logging("-" * 89, path=opt.path)
+        logging("Exiting from training early", path=opt.path)
+        logging("-" * 89, path=opt.path)
+    logging("| skipping final test eval (--skip-final-test-eval)", path=opt.path)
+    writer.close()
+    return state, opt.path
+
+
+if __name__ == "__main__":
+    sys.exit(main())

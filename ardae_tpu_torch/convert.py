@@ -1,0 +1,122 @@
+"""Weights carried between the JAX package and the port.
+
+``flax_to_state_dict`` turns a flax param tree (nested dict of arrays, with
+or without the top ``"params"`` level) into the port module's
+``state_dict``; ``state_dict_to_flax`` is its inverse. The rules:
+
+  * names: ``layers_3`` -> ``layers.3``, ``kernel`` -> ``weight``; every
+    other name (``direction``, ``scale``, ``bias``, the split
+    ``*_l0_row``/``*_l0_ctx`` layers) maps to itself;
+  * dense kernels and directions (in, out) -> (out, in);
+  * conv kernels and directions HWIO -> OIHW;
+  * the two NHWC reshapes of the resconv stack become NCHW: the trunk's fc
+    takes its 512 inputs in NCHW order (columns permuted) and the decoder's
+    fc1 emits its 512 outputs in NCHW order (rows, scales and biases
+    permuted).
+"""
+
+import re
+
+import numpy as np
+import torch
+
+_LAYER = re.compile(r"^layers_(\d+)$")
+
+
+def _nhwc_to_nchw_perm(c, hgt, wid):
+    """perm[j_nchw] = j_nhwc for a (c, h, w) feature map flattened."""
+    cc, yy, xx = np.meshgrid(np.arange(c), np.arange(hgt), np.arange(wid),
+                             indexing="ij")
+    return ((yy * wid + xx) * c + cc).reshape(-1)
+
+
+def _perm_rules(module):
+    """{torch key prefix: ('in' | 'out', perm)} for the resconv NHWC sites."""
+    from ardae_tpu_torch.models.vae.resconv import ResConvDecoder, ResConvTrunk
+
+    perm = _nhwc_to_nchw_perm(32, 4, 4)
+    rules = {}
+    for name, m in module.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(m, ResConvTrunk):
+            rules[f"{pre}fc.dot_0h."] = ("in", perm)
+            rules[f"{pre}fc.dot_01."] = ("in", perm)
+        elif isinstance(m, ResConvDecoder):
+            rules[f"{pre}fc1.dot_h1."] = ("out", perm)
+            rules[f"{pre}fc1.dot_01."] = ("out", perm)
+    return rules
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _torch_key(path):
+    segs = [f"layers.{_LAYER.match(s).group(1)}" if _LAYER.match(s) else s
+            for s in path[:-1]]
+    leaf = "weight" if path[-1] == "kernel" else path[-1]
+    return ".".join(segs + [leaf])
+
+
+def _apply_rule(key, a, rules, inverse):
+    for prefix, (side, perm) in rules.items():
+        if not key.startswith(prefix):
+            continue
+        p = np.argsort(perm) if inverse else perm
+        if side == "in" and a.ndim == 2:
+            return a[:, p]
+        if side == "out":
+            return a[p]
+    return a
+
+
+def flax_to_state_dict(params, module):
+    tree = params["params"] if "params" in params else params
+    rules = _perm_rules(module)
+    out = {}
+    for path, v in _flatten(tree):
+        a = np.array(v, dtype=np.float32)
+        if path[-1] in ("kernel", "direction"):
+            a = a.T if a.ndim == 2 else np.transpose(a, (3, 2, 0, 1))
+        key = _torch_key(path)
+        out[key] = torch.from_numpy(np.ascontiguousarray(
+            _apply_rule(key, a, rules, inverse=False)))
+    return out
+
+
+def state_dict_to_flax(state_dict, module):
+    """Inverse of ``flax_to_state_dict``: {"params": nested numpy dicts}."""
+    rules = _perm_rules(module)
+    tree = {}
+    for key, t in state_dict.items():
+        a = _apply_rule(key, t.detach().cpu().numpy(), rules, inverse=True)
+        segs = key.split(".")
+        path, i = [], 0
+        while i < len(segs) - 1:
+            if segs[i] == "layers" and segs[i + 1].isdigit() and i + 1 < len(segs) - 1:
+                path.append(f"layers_{segs[i + 1]}")
+                i += 2
+            else:
+                path.append(segs[i])
+                i += 1
+        leaf = segs[-1]
+        if leaf in ("weight", "direction"):
+            a = a.T if a.ndim == 2 else np.transpose(a, (2, 3, 1, 0))
+        if leaf == "weight":
+            leaf = "kernel"
+        node = tree
+        for s in path:
+            node = node.setdefault(s, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return {"params": tree}
+
+
+def load_flax_params(module, params):
+    """Copy a flax param tree into ``module`` (strict: every key must match)."""
+    sd = flax_to_state_dict(params, module)
+    module.load_state_dict(sd, strict=True)
+    return module

@@ -1,0 +1,172 @@
+"""MNIST splits of the flagship slice (JAX twin: ardae_tpu/data/mnist.py).
+
+Real idx files under ``{root}/MNIST/raw/`` are used when present; otherwise a
+deterministic class-structured synthetic surrogate stands in and
+``info["synthetic"]`` says so. The train/val split permutation is seeded and
+cached under ``{root}/MNIST/``. The arrays are byte-identical to the JAX
+package's (the tests check it). Splits are float32 numpy [N, 784]; the
+driver moves them to the device once. Static binarization (sbmnist), mnist32
+and StackedMNIST wait (ROADMAP queue 1, slices 2 and 6).
+"""
+
+import os
+import struct
+
+import numpy as np
+
+_N_TRAIN, _N_TEST = 60_000, 10_000
+
+
+# ----------------------------- idx readers --------------------------------
+
+def _read_idx(path, magic_expected):
+    with open(path, "rb") as f:
+        header = f.read(4)
+        if len(header) < 4:
+            return None
+        magic = struct.unpack(">I", header)[0]
+        if magic != magic_expected:
+            return None
+        ndim = magic & 0xFF
+        dims = struct.unpack(f">{ndim}I", f.read(4 * ndim))
+        payload = np.frombuffer(f.read(), dtype=np.uint8)
+    if payload.size != int(np.prod(dims)):
+        return None
+    return payload.reshape(dims)
+
+
+def load_idx_images(path):
+    """idx3-ubyte images -> float32 [N, H*W] in [0, 1]; None if absent."""
+    if not os.path.exists(path):
+        return None
+    arr = _read_idx(path, 2051)
+    if arr is None:
+        return None
+    return arr.reshape(arr.shape[0], -1).astype(np.float32) / 255.0
+
+
+def load_idx_labels(path):
+    """idx1-ubyte labels -> int64 [N]; None if absent."""
+    if not os.path.exists(path):
+        return None
+    arr = _read_idx(path, 2049)
+    return None if arr is None else arr.astype(np.int64)
+
+
+# ------------------------- synthetic surrogate -----------------------------
+
+def _upsample_bilinear_field(f, out):
+    """[h, w] -> [out, out] align-corners bilinear (template synthesis)."""
+    h, w = f.shape
+    yi = np.linspace(0, h - 1, out)
+    xi = np.linspace(0, w - 1, out)
+    y0 = np.clip(yi.astype(np.int64), 0, h - 2)
+    x0 = np.clip(xi.astype(np.int64), 0, w - 2)
+    wy = (yi - y0)[:, None]
+    wx = (xi - x0)[None, :]
+    a = f[y0][:, x0]
+    b = f[y0][:, x0 + 1]
+    c = f[y0 + 1][:, x0]
+    d = f[y0 + 1][:, x0 + 1]
+    return (a * (1 - wy) * (1 - wx) + b * (1 - wy) * wx
+            + c * wy * (1 - wx) + d * wy * wx)
+
+
+def _class_templates(n_classes=10, size=28, seed=777):
+    """Crisp per-class ink patterns in [0, 1]: a steep sigmoid over a smooth
+    random field (exactly-0 background, mostly saturated ink)."""
+    rng = np.random.default_rng(seed)
+    tpl = np.empty((n_classes, size, size), np.float32)
+    for c in range(n_classes):
+        field = _upsample_bilinear_field(rng.normal(size=(7, 7)), size)
+        field = (field - field.mean()) / (field.std() + 1e-8)
+        tpl[c] = 1.0 / (1.0 + np.exp(-12.0 * (field - 1.1)))
+    return tpl
+
+
+def _synthetic_mnist(n, seed):
+    """Class template + small integer shift + amplitude jitter + ink-masked
+    pixel noise, clipped to [0, 1], background snapped to exactly 0."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 10, n)
+    tpl = _class_templates()
+    imgs = tpl[labels].copy()
+    sx = rng.integers(-2, 3, n)
+    sy = rng.integers(-2, 3, n)
+    for dx in range(-2, 3):
+        for dy in range(-2, 3):
+            m = (sx == dx) & (sy == dy)
+            if m.any():
+                imgs[m] = np.roll(np.roll(imgs[m], dx, axis=1), dy, axis=2)
+    amp = rng.uniform(0.9, 1.0, (n, 1, 1)).astype(np.float32)
+    noise = rng.normal(0.0, 0.08, (n, 28, 28)).astype(np.float32)
+    out = imgs * amp + noise * (imgs > 0.05)
+    out = np.clip(out, 0.0, 1.0).astype(np.float32)
+    out[out < 1e-3] = 0.0
+    return out.reshape(n, 784), labels.astype(np.int64)
+
+
+def _load_mnist_arrays(root):
+    """(train_x, train_y, test_x, test_y, synthetic, labels_fallback)."""
+    raw = os.path.join(root, "MNIST", "raw")
+    tr_x = load_idx_images(os.path.join(raw, "train-images-idx3-ubyte"))
+    te_x = load_idx_images(os.path.join(raw, "t10k-images-idx3-ubyte"))
+    if tr_x is not None and te_x is not None:
+        tr_y = load_idx_labels(os.path.join(raw, "train-labels-idx1-ubyte"))
+        te_y = load_idx_labels(os.path.join(raw, "t10k-labels-idx1-ubyte"))
+        labels_fallback = tr_y is None or te_y is None
+        if tr_y is None:
+            tr_y = np.zeros(tr_x.shape[0], np.int64)
+        if te_y is None:
+            te_y = np.zeros(te_x.shape[0], np.int64)
+        return tr_x, tr_y, te_x, te_y, False, labels_fallback
+    tr_x, tr_y = _synthetic_mnist(_N_TRAIN, seed=1_000_001)
+    te_x, te_y = _synthetic_mnist(_N_TEST, seed=1_000_003)
+    return tr_x, tr_y, te_x, te_y, True, False
+
+
+def _val_split_indices(root, dataset, n, val_size):
+    """Cached, seeded split permutation (reference datasets/mnist.py:60-67);
+    the same file and content as the JAX package's."""
+    d = os.path.join(root, "MNIST")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f"{dataset}-val{val_size}-split.npz")
+    if os.path.exists(path):
+        return np.load(path)["indices"]
+    indices = np.random.default_rng(n + val_size).permutation(n)
+    tmp = path + f".{os.getpid()}.tmp.npz"
+    np.savez(tmp, indices=indices)
+    os.replace(tmp, path)
+    return indices
+
+
+def get_mnist(dataset, root="data", final_mode=False):
+    """mnist / cmnist / dbmnist / dbmnist-val5k splits
+    (reference get_mnist, datasets/mnist.py:49-92)."""
+    if dataset not in ("mnist", "cmnist", "dbmnist", "dbmnist-val5k"):
+        raise NotImplementedError(
+            f"dataset {dataset!r} is not ported yet: ROADMAP queue 1, slice 6")
+    binary = dataset in ("dbmnist", "dbmnist-val5k")
+    val_size = 5_000 if dataset == "dbmnist-val5k" else 10_000
+    tr_x, tr_y, te_x, te_y, synthetic, labels_fallback = _load_mnist_arrays(root)
+    if final_mode:
+        train_x, train_y, val_x, val_y = tr_x, tr_y, None, None
+    else:
+        n = tr_x.shape[0]
+        idx = _val_split_indices(root, dataset, n, val_size)
+        train_x, train_y = tr_x[idx[: n - val_size]], tr_y[idx[: n - val_size]]
+        val_x, val_y = tr_x[idx[n - val_size:]], tr_y[idx[n - val_size:]]
+    return {
+        "train": train_x,
+        "val": val_x,
+        "test": te_x,
+        "info": {
+            "binarize": binary,
+            "center": dataset == "cmnist",
+            "synthetic": synthetic,
+            "labels_fallback": labels_fallback,
+            "nclasses": 10,
+            "image_size": 28,
+            "labels": {"train": train_y, "val": val_y, "test": te_y},
+        },
+    }

@@ -1,0 +1,264 @@
+"""Fused denoising-score-matching loss of the res-style conditional AR-DAE
+(the phase-A hot op), bound to the hand-written Hopper kernel in
+``csrc/fused_dsm.cu``.
+
+JAX twin: ardae_tpu/ops/fused_dsm.py (``fused_cdae_dsm_loss`` around the
+Pallas ``_fwd_kernel``/``_bwd_kernel``). Same math:
+
+    inp   = MLP_enc(x_bar)                       (E layers, act everywhere)
+    h0    = act(inp @ W_h + sigma * w_s + b0 + ctx_l0[item])
+    h_k   = act(h_{k-1} @ W_k + b_k)             (H hidden layers)
+    r     = h_H @ W_out + b_out
+    loss  = mean((sigma * r + eps)^2)
+
+Differences from the TPU kernel: the context contribution enters as
+(bsz, h) and its gradient comes back reduced to (bsz, h) (the TPU kernel
+took and returned (n, h) rows); the row count need not divide any tile.
+
+Dispatch: on a CPU tensor ``fused_cdae_dsm_loss`` runs the plain-PyTorch
+``fused_cdae_dsm_loss_reference``; on a CUDA tensor it launches the kernel
+or raises. There is no fallback.
+"""
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+from ardae_tpu_torch.models.cdae.cardae import dsm_noise
+
+_ACTS = {"softplus": 0, "relu": 1, "tanh": 2}
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_SRC = os.path.join(_REPO, "ardae_tpu_torch", "csrc", "fused_dsm.cu")
+_BUILD = os.path.join(_REPO, "build")
+_LIB = os.path.join(_BUILD, "libfused_dsm.so")
+
+# The activation workspace the forward keeps for the backward,
+# (layers - 1) x n x h fp32; the guard caps it (1.6 GB at the flagship).
+MAX_WORKSPACE_BYTES = 16 << 30
+
+
+def _nvcc():
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the fused DSM kernel needs the "
+                           "CUDA toolkit to build")
+    return path
+
+
+@functools.lru_cache(maxsize=1)
+def build_library():
+    """Compile ``csrc/fused_dsm.cu`` for sm_90a into ``build/`` (once per
+    source change) and load it. Returns (ctypes library, build info dict)."""
+    os.makedirs(_BUILD, exist_ok=True)
+    info = {"seconds": 0.0, "log": "", "built": False}
+    if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
+        tmp = f"{_LIB}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", tmp, _SRC]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        info["seconds"] = time.perf_counter() - t0
+        info["log"] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{info['log']}")
+        os.replace(tmp, _LIB)
+        info["built"] = True
+    lib = ctypes.CDLL(_LIB)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.fused_dsm_scratch_floats.argtypes = [i, i, p, p]
+    lib.fused_dsm_scratch_floats.restype = ll
+    lib.fused_dsm_fwd.argtypes = (
+        [i] * 6 + [p, p, p, p, i, p, p, p, p, p, p, i, p, p, p, p])
+    lib.fused_dsm_fwd.restype = i
+    lib.fused_dsm_bwd.argtypes = (
+        [i] * 6 + [p, p, p, p, p, p, p, p, p, i, p, p, p, p, i, p, p, p, p])
+    lib.fused_dsm_bwd.restype = i
+    return lib, info
+
+
+def flat_weights(module):
+    """CARDAE (res-style, conditional, split trunk) -> [W0, b0, ..., Wout,
+    bout], torch layout; l0's weight keeps sigma's column as its last."""
+    layers = list(module.inp_encode.layers) + [module.inp_encode.fc,
+                                               module.l0_row]
+    layers += list(module.trunk_rest.layers) + [module.trunk_rest.fc]
+    flat = []
+    for lin in layers:
+        flat += [lin.weight, lin.bias]
+    return flat, len(module.inp_encode.layers) + 1
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+
+def _ints(xs):
+    return (ctypes.c_int * len(xs))(*xs)
+
+
+def _check(t, name):
+    if not (t.is_cuda and t.dtype == torch.float32 and t.is_contiguous()):
+        raise ValueError(f"fused DSM kernel: {name} must be a contiguous "
+                         f"float32 CUDA tensor, got {t.dtype} on {t.device}")
+
+
+class FusedDSMFunction(torch.autograd.Function):
+    """Kernel-backed DSM chain. Inputs: act name, l0 index, xbar (n, d),
+    eps (n, d), sigma (n, 1), ctx_l0 (bsz, h), then the flat weights.
+    ``launches`` counts the forward and backward entry points launched."""
+
+    launches = {"fused_dsm_fwd": 0, "fused_dsm_bwd": 0}
+
+    @staticmethod
+    def forward(ctx, act, l0, xbar, eps, sigma, ctx_l0, *flat):
+        lib, _ = build_library()
+        for name, t in [("xbar", xbar), ("eps", eps), ("sigma", sigma),
+                        ("ctx_l0", ctx_l0)] + [(f"weight {k}", w)
+                                               for k, w in enumerate(flat)]:
+            _check(t, name)
+        n, d = xbar.shape
+        bsz, h = ctx_l0.shape
+        if n % bsz:
+            raise ValueError(f"rows {n} are not a whole number of items {bsz}")
+        ws, bs = flat[0::2], flat[1::2]
+        out_dims = [w.shape[0] for w in ws]
+        in_dims = [w.shape[1] for w in ws]
+        ldw = list(in_dims)
+        in_dims[l0] -= 1  # sigma's column
+        L = len(ws)
+        dev = xbar.device
+        acts = torch.empty((L - 1, n, h), device=dev)
+        r = torch.empty((n, d), device=dev)
+        loss = torch.empty((), device=dev)
+        n_scratch = lib.fused_dsm_scratch_floats(n, L, _ints(in_dims),
+                                                 _ints(out_dims))
+        scratch = torch.empty(n_scratch, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_dsm_fwd(
+            n, d, n // bsz, L, l0, _ACTS[act], xbar.data_ptr(), eps.data_ptr(),
+            sigma.data_ptr(), ctx_l0.data_ptr(), h, _ptrs(ws), _ptrs(bs),
+            _ints(in_dims), _ints(out_dims), _ints(ldw), acts.data_ptr(), h,
+            r.data_ptr(), scratch.data_ptr(), loss.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"fused_dsm_fwd launch failed: CUDA error {err}")
+        FusedDSMFunction.launches["fused_dsm_fwd"] += 1
+        ctx.act, ctx.l0, ctx.bsz = act, l0, bsz
+        ctx.dims = (in_dims, out_dims, ldw, n_scratch)
+        ctx.save_for_backward(xbar, eps, sigma, acts, r, *ws)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        lib, _ = build_library()
+        xbar, eps, sigma, acts, r, *ws = ctx.saved_tensors
+        in_dims, out_dims, ldw, n_scratch = ctx.dims
+        n, d = xbar.shape
+        h = acts.shape[-1]
+        dev = xbar.device
+        g = g.to(torch.float32).contiguous()
+        dws = [torch.empty_like(w) for w in ws]
+        dbs = [torch.empty(w.shape[0], device=dev) for w in ws]
+        dctx = torch.empty((ctx.bsz, h), device=dev)
+        width = max(max(out_dims), max(in_dims))
+        dp0 = torch.empty((n, width), device=dev)
+        dp1 = torch.empty((n, width), device=dev)
+        scratch = torch.empty(n_scratch, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_dsm_bwd(
+            n, d, n // ctx.bsz, len(ws), ctx.l0, _ACTS[ctx.act],
+            xbar.data_ptr(), eps.data_ptr(), sigma.data_ptr(), g.data_ptr(),
+            _ptrs(ws), _ints(in_dims), _ints(out_dims), _ints(ldw),
+            acts.data_ptr(), h, r.data_ptr(), _ptrs(dws), _ptrs(dbs),
+            dctx.data_ptr(), h, dp0.data_ptr(), dp1.data_ptr(),
+            scratch.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"fused_dsm_bwd launch failed: CUDA error {err}")
+        FusedDSMFunction.launches["fused_dsm_bwd"] += 1
+        flat_grads = []
+        for dw, db in zip(dws, dbs):
+            flat_grads += [dw, db]
+        return (None, None, None, None, None, dctx, *flat_grads)
+
+
+def dsm_chain_reference(act, l0, xbar, eps, sigma, ctx_l0, *flat):
+    """The kernel's function in plain PyTorch; autograd gives its gradients."""
+    from ardae_tpu_torch.nn.activations import get_nonlinear_func
+
+    afun = get_nonlinear_func(act)
+    n = xbar.shape[0]
+    bsz, hdim = ctx_l0.shape
+    h = xbar
+    ws, bs = flat[0::2], flat[1::2]
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        if i == l0:
+            pre = h @ w[:, :-1].T + sigma * w[:, -1] + b
+            pre = (pre.reshape(bsz, n // bsz, hdim) + ctx_l0[:, None, :]).reshape(n, hdim)
+        else:
+            pre = h @ w.T + b
+        h = pre if i == len(ws) - 1 else afun(pre)
+    return torch.mean((sigma * h + eps) ** 2)
+
+
+def dsm_chain(act, l0, xbar, eps, sigma, ctx_l0, *flat):
+    """Kernel on a CUDA tensor, plain version on a CPU tensor, else raise."""
+    if xbar.is_cuda:
+        return FusedDSMFunction.apply(act, l0, xbar, eps, sigma, ctx_l0, *flat)
+    if xbar.device.type == "cpu":
+        return dsm_chain_reference(act, l0, xbar, eps, sigma, ctx_l0, *flat)
+    raise RuntimeError(f"fused DSM: no kernel for device {xbar.device}")
+
+
+def supports_fused_dsm(module, n_rows):
+    """The kernel covers the res-style, conditional, sigma-conditioned,
+    enc_input CARDAE with a softplus, relu or tanh activation, in fp32, for
+    any row count. Its tiles (128x128x8 SGEMM blocks, 128-column sums) loop
+    over every dimension and mask the edges, so they bound no width; the
+    bound is the activation workspace the forward keeps for the backward,
+    (layers - 1) x n_rows x h x 4 B, capped at MAX_WORKSPACE_BYTES."""
+    if not (getattr(module, "score_type", None) == "res" and module.conditional
+            and module.sigma_conditioned and module.enc_input
+            and module.nonlinearity in _ACTS):
+        return False
+    if any(p.dtype != torch.float32 for p in module.parameters()):
+        return False
+    layers = 2 * module.num_hidden_layers + 1
+    return (layers - 1) * n_rows * module.h_dim * 4 <= MAX_WORKSPACE_BYTES
+
+
+def _prepare(module, latent, context, std, generator, eps):
+    bsz, ssz, d = latent.shape
+    n = bsz * ssz
+    x = latent.reshape(n, d).to(torch.float32)
+    sigma = torch.as_tensor(std, dtype=torch.float32, device=x.device)
+    sigma = sigma.expand(bsz, ssz, 1).reshape(n, 1).contiguous()
+    eps = dsm_noise((n, d), generator, eps, device=x.device).contiguous()
+    xbar = (x + sigma * eps).contiguous()
+    ctx_l0 = module.ctx_l0(context)
+    flat, l0 = flat_weights(module)
+    return module.nonlinearity, l0, xbar, eps, sigma, ctx_l0, flat
+
+
+def fused_cdae_dsm_loss(module, latent, context, std, generator=None, eps=None):
+    """Drop-in for ``cdae_loss`` (gaussian noise) on supported configs.
+
+    latent (bsz, ssz, d), context (bsz, ctx_dim), std (bsz, ssz, 1); ``eps``
+    the injected DSM noise (n, d), else drawn from ``generator``. Gradients
+    reach every weight and, through d/d(ctx_l0), the context encoder;
+    latent, context and std are constants (phase A detaches them)."""
+    act, l0, xbar, eps, sigma, ctx_l0, flat = _prepare(
+        module, latent, context, std, generator, eps)
+    return dsm_chain(act, l0, xbar, eps, sigma, ctx_l0, *flat)
+
+
+def fused_cdae_dsm_loss_reference(module, latent, context, std, generator=None,
+                                  eps=None):
+    """``fused_cdae_dsm_loss`` in plain PyTorch on any device."""
+    act, l0, xbar, eps, sigma, ctx_l0, flat = _prepare(
+        module, latent, context, std, generator, eps)
+    return dsm_chain_reference(act, l0, xbar, eps, sigma, ctx_l0, *flat)

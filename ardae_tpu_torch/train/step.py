@@ -1,0 +1,173 @@
+"""The joint AR-DAE training step (JAX twin: ardae_tpu/train/step.py).
+
+  PHASE A (x num_cdae_updates, each on its own data batch):
+    sigma_i   = delta * mean_d std_s( std_scale * (z_s - z_det) )   per item
+    stdmat    ~ sigma_i * N(0,1)  per (item, sample)
+    cdae loss = mse(sigma * score(x_bar, ctx, sigma), -eps)
+    cdae optimizer step.
+  PHASE B (fresh batch):
+    model loss = mean(recon + beta * prior_energy), plus the entropy-gradient
+    surrogate beta/(bsz*nz) * sum(stop_grad(score) * std_scale*(z - z_det)),
+    whose d/dz is the gradient the reference injects by graph surgery.
+    model optimizer step.
+
+PyTorch runs eagerly: the K-step chunk is a Python loop over steps, with the
+batch gather and the Bernoulli binarization on the device. Every random draw
+can be injected (``draws``); otherwise it comes from the explicit generator.
+The fp32 path only: bf16, weight averaging, remat and sample sharding wait
+(ROADMAP queue 1).
+"""
+
+import dataclasses
+
+import torch
+
+from ardae_tpu_torch.data.loader import gather_batches
+from ardae_tpu_torch.models.cdae.cardae import cdae_loss, cdae_score
+from ardae_tpu_torch.models.ivae import api as ivae_api
+from ardae_tpu_torch.ops.fused_dsm import fused_cdae_dsm_loss, supports_fused_dsm
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    std_scale: float = 1.0
+    delta: float = 1.0
+    num_cdae_updates: int = 1
+    train_nz_cdae: int = 1
+    train_nstd_cdae: int = 1
+    train_nz_model: int = 1
+    ctx_type: str = "data"  # data | lt0
+    # the hand-written fused DSM kernel (ops/fused_dsm) for phase A; a
+    # config the kernel does not cover raises instead of falling back
+    use_kernels: bool = False
+
+
+def _randn(shape, generator, device, injected=None):
+    if injected is not None:
+        return injected.to(device=device, dtype=torch.float32).reshape(shape)
+    return torch.randn(shape, generator=generator, device=device)
+
+
+def compute_context(model, x, ctx_type):
+    """CDAE conditioning (reference ivae_ardae.py:729-741), detached."""
+    with torch.no_grad():
+        if ctx_type == "data":
+            ctx = x.reshape(x.shape[0], -1)
+            return 2.0 * ctx - 1.0 if model.center_input else ctx
+        if ctx_type == "lt0":
+            z = ivae_api.encode_det(model, x)
+            return z.reshape(z.shape[0], -1)
+    raise NotImplementedError(
+        f"ctx type {ctx_type!r} is not ported yet: ROADMAP queue 1, slice 5")
+
+
+@torch.no_grad()
+def _sigma_stats(model, x, cfg, generator, latent_eps=None):
+    """Per-item adaptive noise level (reference ivae_ardae.py:748-758)."""
+    latent_mean = ivae_api.encode_det(model, x)                     # (B,1,z)
+    latent = ivae_api.sample_latents(model, x, cfg.train_nz_cdae,
+                                     generator=generator, eps=latent_eps)
+    lsm = cfg.std_scale * (latent - latent_mean)                    # (B,nz,z)
+    std_qz = torch.std(lsm, dim=1, keepdim=True, unbiased=True)     # (B,1,z)
+    sigma = cfg.delta * torch.mean(std_qz, dim=2, keepdim=True)     # (B,1,1)
+    return lsm, sigma, latent_mean
+
+
+def cdae_update(model, cdae, opt_d, cfg, x, generator, draws=None):
+    """One PHASE-A update, in place. ``draws``: optional injected
+    ``latent_eps`` (B*nz, noise), ``std`` (B, nz*nstd, 1), ``dsm_eps``
+    (B*nz*nstd, z). Returns the metrics (detached tensors)."""
+    draws = draws or {}
+    bsz = x.shape[0]
+    lsm, sigma, latent_mean = _sigma_stats(model, x, cfg, generator,
+                                           draws.get("latent_eps"))
+    if cfg.ctx_type == "lt0":
+        # the std=0 encoding doubles as the context (ivae_ardae.py:735+748)
+        ctx = latent_mean.reshape(bsz, -1)
+    else:
+        ctx = compute_context(model, x, cfg.ctx_type)
+    ns = cfg.train_nz_cdae * cfg.train_nstd_cdae
+    stdmat = sigma * _randn((bsz, ns, 1), generator, x.device, draws.get("std"))
+    zdim = lsm.shape[-1]
+    lsm_exp = lsm if cfg.train_nstd_cdae == 1 else (
+        lsm[:, :, None, :].expand(bsz, cfg.train_nz_cdae, cfg.train_nstd_cdae,
+                                  zdim).reshape(bsz, ns, zdim))
+    if cfg.use_kernels:
+        if not supports_fused_dsm(cdae, bsz * ns):
+            raise NotImplementedError(
+                "--use-kernels: the fused DSM kernel covers the res-style, "
+                "conditional, sigma-conditioned CARDAE with softplus/relu/tanh "
+                "in fp32 (ops/fused_dsm.supports_fused_dsm); this cdae is not "
+                "covered, and the grad-style kernel is not ported yet "
+                "(ROADMAP queue 2, items 1-2)")
+        loss_fn = fused_cdae_dsm_loss
+    else:
+        loss_fn = cdae_loss
+    loss = loss_fn(cdae, lsm_exp, ctx, stdmat, generator=generator,
+                   eps=draws.get("dsm_eps"))
+    opt_d.zero_grad(set_to_none=True)
+    loss.backward()
+    opt_d.step()
+    return {"cdae_loss": loss.detach(), "std_eff_mean": sigma.mean(),
+            "std_eff_max": sigma.max(), "std_eff_min": sigma.min()}
+
+
+def model_update(model, cdae, opt_m, cfg, x, beta, generator, draws=None):
+    """PHASE B, in place: ELBO-without-entropy + injected entropy gradient.
+    ``draws``: optional injected ``eps`` (B*nz, noise_dim)."""
+    draws = draws or {}
+    bsz, nz = x.shape[0], cfg.train_nz_model
+    model_loss, terms = ivae_api.ivae_loss(model, x, nz, beta=beta,
+                                           generator=generator,
+                                           eps=draws.get("eps"))
+    z = terms["z"]
+    with torch.no_grad():
+        latent_mean = ivae_api.encode_det(model, x)
+        ctx = (latent_mean.reshape(bsz, -1) if cfg.ctx_type == "lt0"
+               else compute_context(model, x, cfg.ctx_type))
+        score = cdae_score(cdae, cfg.std_scale * (z - latent_mean), ctx, 0.0)
+    aux = torch.sum(score * (cfg.std_scale * (z - latent_mean)))
+    total = model_loss + beta * aux / (bsz * nz)
+    opt_m.zero_grad(set_to_none=True)
+    total.backward()
+    opt_m.step()
+    return {"model_loss": model_loss.detach(), "recon_loss": terms["recon"].detach(),
+            "prior_loss": terms["prior"].detach()}
+
+
+def one_step(state, cfg, cdae_batches, model_batch, beta, generator, draws=None):
+    """One joint step on (U, B, D) phase-A batches and a (B, D) phase-B batch.
+    ``draws``: optional {"cdae": [per-update draws], "model": draws}."""
+    draws = draws or {}
+    metrics = {}
+    for i in range(cfg.num_cdae_updates):
+        cd = draws.get("cdae")
+        metrics.update(cdae_update(state.model, state.cdae, state.opt_cdae, cfg,
+                                   cdae_batches[i], generator,
+                                   cd[i] if cd else None))
+    metrics.update(model_update(state.model, state.cdae, state.opt_model, cfg,
+                                model_batch, beta, generator, draws.get("model")))
+    state.step += 1
+    return metrics
+
+
+def train_chunk(state, cfg, data, cdae_idx, model_idx, generator, beta_fn,
+                binarize=False, draws=None):
+    """K joint steps: the Python-loop counterpart of the JAX lax.scan chunk.
+
+    data: (N, D) on the device; cdae_idx (K, U, B) and model_idx (K, B)
+    integer indices. ``draws``: optional per-step list of {"bin_cdae": (U, B,
+    D) and "bin_model": (B, D) uniforms, "step": one_step's draws}. Returns
+    the last step's metrics."""
+    metrics = None
+    for k in range(len(model_idx)):
+        d = draws[k] if draws else {}
+        c_idx = torch.as_tensor(cdae_idx[k], device=data.device)
+        m_idx = torch.as_tensor(model_idx[k], device=data.device)
+        cdae_batches = gather_batches(data, c_idx, binarize, generator,
+                                      d.get("bin_cdae"))
+        model_batch = gather_batches(data, m_idx, binarize, generator,
+                                     d.get("bin_model"))
+        metrics = one_step(state, cfg, cdae_batches, model_batch,
+                           beta_fn(state.step), generator, d.get("step"))
+    return metrics

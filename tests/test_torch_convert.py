@@ -1,0 +1,72 @@
+"""The flax <-> torch parameter converter, one round trip per layer kind:
+flax params -> port state_dict (loaded strictly into the port module) ->
+flax params again, bit for bit."""
+
+import jax
+import numpy as np
+import pytest
+
+from ardae_tpu.models.cdae import MLPResCARDAE as JRes
+from ardae_tpu.models.ivae.resconv import ResConvIPVAE as JIPVAE
+from ardae_tpu.nn import conv as jconv
+from ardae_tpu.nn import linear as jlin
+from ardae_tpu.nn import mlp as jmlp
+from ardae_tpu_torch.convert import (
+    _nhwc_to_nchw_perm,
+    flax_to_state_dict,
+    state_dict_to_flax,
+)
+from ardae_tpu_torch.models.cdae.cardae import MLPResCARDAE as TRes
+from ardae_tpu_torch.models.ivae.resconv import ResConvIPVAE as TIPVAE
+from ardae_tpu_torch.nn import conv as tconv
+from ardae_tpu_torch.nn import linear as tlin
+from ardae_tpu_torch.nn import mlp as tmlp
+from torch_parity import init, rand
+
+CASES = {
+    "linear": lambda: (jlin.Linear(5), tlin.Linear(4, 5), (rand(0, 2, 4),)),
+    "wn_linear": lambda: (jlin.WeightNormalizedLinear(5),
+                          tlin.WeightNormalizedLinear(4, 5), (rand(0, 2, 4),)),
+    "res_linear": lambda: (jlin.ResLinear(6), tlin.ResLinear(4, 6),
+                           (rand(0, 2, 4),)),
+    "res_mlp": lambda: (jmlp.ResMLP(hidden_dim=8, output_dim=3, num_hidden_layers=2),
+                        tmlp.ResMLP(4, 8, 3, num_hidden_layers=2), (rand(0, 2, 4),)),
+    "wn_conv2d": lambda: (jconv.WNConv2d(6, 3, 1, 1), tconv.WNConv2d(2, 6, 3, 1, 1),
+                          (rand(0, 1, 5, 5, 2),)),
+    "res_conv2d": lambda: (jconv.ResConv2d(6, 3, 2, 1), tconv.ResConv2d(2, 6, 3, 2, 1),
+                           (rand(0, 1, 6, 6, 2),)),
+    "res_linear2": lambda: (jconv.ResLinear2(6), tconv.ResLinear2(4, 6),
+                            (rand(0, 2, 4),)),
+    "cardae_split_l0": lambda: (
+        JRes(input_dim=3, context_dim=5, h_dim=8, num_hidden_layers=3),
+        TRes(3, 5, 8, 3), (rand(0, 4, 3), rand(1, 4, 5), rand(2, 4, 1))),
+    "resconv_ipvae_nhwc": lambda: (
+        JIPVAE(z_dim=4, noise_dim=3, c_dim=512, h_dim=8, enc_type="res-wn-mlp"),
+        TIPVAE(z_dim=4, noise_dim=3, c_dim=512, h_dim=8),
+        (rand(0, 2, 784), rand(1, 2, 3))),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(CASES))
+def test_round_trip(kind):
+    jm, tm, args = CASES[kind]()
+    p = init(jm, *args)
+    sd = flax_to_state_dict(p, tm)
+    tm.load_state_dict(sd, strict=True)
+    back = state_dict_to_flax(tm.state_dict(), tm)
+    la = jax.tree_util.tree_leaves_with_path(p)
+    lb = dict((jax.tree_util.keystr(k), v)
+              for k, v in jax.tree_util.tree_leaves_with_path(back))
+    assert len(la) == len(lb)
+    for k, v in la:
+        np.testing.assert_array_equal(np.asarray(v), lb[jax.tree_util.keystr(k)])
+
+
+def test_nhwc_perm_maps_flatten_orders():
+    """perm[j_nchw] = j_nhwc: an NCHW flatten, gathered by perm, reads the
+    NHWC flatten of the same feature map."""
+    fmap = np.arange(32 * 4 * 4).reshape(32, 4, 4)
+    nchw = fmap.reshape(-1)
+    nhwc = np.transpose(fmap, (1, 2, 0)).reshape(-1)
+    perm = _nhwc_to_nchw_perm(32, 4, 4)
+    np.testing.assert_array_equal(nhwc[perm], nchw)
