@@ -1,11 +1,13 @@
 """AR-DAE implicit-VAE trainer CLI (JAX twin: ardae_tpu/cli/ivae_ardae.py).
 
 The whole reference flag surface parses (reference ivae_ardae.py:32-196).
-The port's first slice trains the flagship line (resconv-res / resconvct-res
-with an mlp-res or mlp-grad cdae on the MNIST family), with ``--use-kernels``
-selecting the hand-written fused DSM kernel for phase A. Flags and cadences
-the slice does not cover raise NotImplementedError naming their ROADMAP item
-whenever the run would use them; none is ignored in silence.
+The port trains the flagship line (resconv-res / resconvct-res) and the
+implicit-conv line (mnist-conv, which takes ``--model-h-dim 0
+--model-n-layers 0``), each with an mlp-res or mlp-grad cdae on the MNIST
+family; ``--use-kernels`` sends phase A to the hand-written fused DSM kernel
+of the cdae's style. Flags and cadences the port does not cover raise
+NotImplementedError naming their ROADMAP item whenever the run would use
+them; none is ignored in silence.
 
 Device: ``--no-cuda`` selects the CPU, as in the reference; otherwise the
 run needs a CUDA device and raises without one.
@@ -111,8 +113,9 @@ def build_parser():
                    choices=["float32", "bfloat16"])
     p.add_argument("--use-kernels", action="store_true", default=False,
                    help="phase-A DSM loss through the hand-written fused "
-                        "Hopper kernel (res-style cdae; raises on a config "
-                        "the kernel does not cover)")
+                        "Hopper kernel of the cdae's style (ops/fused_dsm for "
+                        "mlp-res, ops/fused_dsm_grad for mlp-grad); raises on "
+                        "a config the kernel does not cover")
     p.add_argument("--dp-devices", type=int, default=0)
     p.add_argument("--sp-devices", type=int, default=0)
     p.add_argument("--profile-dir", default=None)

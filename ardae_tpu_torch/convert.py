@@ -8,11 +8,16 @@ or without the top ``"params"`` level) into the port module's
     other name (``direction``, ``scale``, ``bias``, the split
     ``*_l0_row``/``*_l0_ctx`` layers) maps to itself;
   * dense kernels and directions (in, out) -> (out, in);
-  * conv kernels and directions HWIO -> OIHW;
-  * the two NHWC reshapes of the resconv stack become NCHW: the trunk's fc
-    takes its 512 inputs in NCHW order (columns permuted) and the decoder's
-    fc1 emits its 512 outputs in NCHW order (rows, scales and biases
-    permuted).
+  * conv kernels and directions HWIO -> OIHW; transposed-conv kernels HWIO
+    -> (in, out, k, k), torch's ConvTranspose2d layout, with no spatial flip
+    (the JAX layer flips at use, nn/conv.py:108-117, and torch's transposed
+    convolution is that same flipped correlation);
+  * the two NHWC reshapes of each conv stack become NCHW: the layer after
+    the trunk takes the (32, s, s) features in NCHW order (columns
+    permuted: the resconv trunk's fc, the conv IVAE's fc4_inp) and the
+    decoder layer before the first conv emits them in NCHW order (rows,
+    scales and biases permuted: the resconv decoder's fc1, the conv
+    decoder's fc.fc).
 """
 
 import re
@@ -31,7 +36,10 @@ def _nhwc_to_nchw_perm(c, hgt, wid):
 
 
 def _perm_rules(module):
-    """{torch key prefix: ('in' | 'out', perm)} for the resconv NHWC sites."""
+    """{torch key prefix: ('in' | 'out', perm)} for the NHWC sites of the
+    resconv and conv stacks."""
+    from ardae_tpu_torch.models.ivae.conv import ConvIPVAE
+    from ardae_tpu_torch.models.vae.conv import ConvDecoder
     from ardae_tpu_torch.models.vae.resconv import ResConvDecoder, ResConvTrunk
 
     perm = _nhwc_to_nchw_perm(32, 4, 4)
@@ -44,7 +52,36 @@ def _perm_rules(module):
         elif isinstance(m, ResConvDecoder):
             rules[f"{pre}fc1.dot_h1."] = ("out", perm)
             rules[f"{pre}fc1.dot_01."] = ("out", perm)
+        elif isinstance(m, ConvIPVAE):
+            s = m.trunk.s
+            rules[f"{pre}fc4_inp."] = ("in", _nhwc_to_nchw_perm(32, s, s))
+        elif isinstance(m, ConvDecoder):
+            rules[f"{pre}fc.fc."] = ("out", _nhwc_to_nchw_perm(32, m.s, m.s))
     return rules
+
+
+def _transposed_convs(module):
+    """Torch key prefixes of the ConvTranspose2d layers of ``module``."""
+    from ardae_tpu_torch.nn.conv import ConvTranspose2d
+
+    return tuple(f"{name}." if name else "" for name, m in module.named_modules()
+                 if isinstance(m, ConvTranspose2d))
+
+
+def _to_torch_kernel(key, a, transposed):
+    if a.ndim == 2:
+        return a.T
+    if key.startswith(transposed):
+        return np.transpose(a, (2, 3, 0, 1))   # HWIO -> (in, out, k, k)
+    return np.transpose(a, (3, 2, 0, 1))       # HWIO -> OIHW
+
+
+def _to_flax_kernel(key, a, transposed):
+    if a.ndim == 2:
+        return a.T
+    if key.startswith(transposed):
+        return np.transpose(a, (2, 3, 0, 1))   # (in, out, k, k) -> HWIO
+    return np.transpose(a, (2, 3, 1, 0))       # OIHW -> HWIO
 
 
 def _flatten(tree, prefix=()):
@@ -77,12 +114,13 @@ def _apply_rule(key, a, rules, inverse):
 def flax_to_state_dict(params, module):
     tree = params["params"] if "params" in params else params
     rules = _perm_rules(module)
+    transposed = _transposed_convs(module)
     out = {}
     for path, v in _flatten(tree):
         a = np.array(v, dtype=np.float32)
-        if path[-1] in ("kernel", "direction"):
-            a = a.T if a.ndim == 2 else np.transpose(a, (3, 2, 0, 1))
         key = _torch_key(path)
+        if path[-1] in ("kernel", "direction"):
+            a = _to_torch_kernel(key, a, transposed)
         out[key] = torch.from_numpy(np.ascontiguousarray(
             _apply_rule(key, a, rules, inverse=False)))
     return out
@@ -91,6 +129,7 @@ def flax_to_state_dict(params, module):
 def state_dict_to_flax(state_dict, module):
     """Inverse of ``flax_to_state_dict``: {"params": nested numpy dicts}."""
     rules = _perm_rules(module)
+    transposed = _transposed_convs(module)
     tree = {}
     for key, t in state_dict.items():
         a = _apply_rule(key, t.detach().cpu().numpy(), rules, inverse=True)
@@ -105,7 +144,7 @@ def state_dict_to_flax(state_dict, module):
                 i += 1
         leaf = segs[-1]
         if leaf in ("weight", "direction"):
-            a = a.T if a.ndim == 2 else np.transpose(a, (2, 3, 1, 0))
+            a = _to_flax_kernel(key, a, transposed)
         if leaf == "weight":
             leaf = "kernel"
         node = tree

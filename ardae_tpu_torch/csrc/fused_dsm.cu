@@ -20,9 +20,8 @@
 //    products are bound by the ~67 TFLOP/s fp32 FMA rate. At the flagship
 //    shape (n = 80,000, d = 32, h = 512, 5 encoder + l0 + 4 hidden + out)
 //    the forward is ~0.38 TFLOP and the backward ~0.75 TFLOP.
-//  * One tiled SGEMM template (128x128x8 block tile, 8x8 outputs a thread
-//    read from shared memory as float4s, two shared buffers with the next
-//    tile's global loads in flight, ragged edges masked) with three
+//  * The tiled SGEMM of dsm_sgemm.cuh (128x128x8 block tile, float4 shared
+//    reads, register double buffer, ragged edges masked) with three
 //    operand layouts and fused epilogues: forward (bias, sigma column,
 //    per-item ctx row, activation), backward input gradient (times phi'),
 //    and weight gradient.
@@ -46,220 +45,9 @@
 // Plain C interface, loaded with ctypes; every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dsm_sgemm.cuh"
 
 namespace {
-
-constexpr int BM = 128, BN = 128, BK = 8, NT = 256, PAD = 4;
-constexpr int LOSS_BLOCKS = 264;   // two blocks per SM of an H100 SXM
-constexpr int COLSUM_SEGS = 64;    // row segments of a split column sum
-constexpr int COLSUM_THREADS = 128;
-
-enum Act { ACT_SOFTPLUS = 0, ACT_RELU = 1, ACT_TANH = 2 };
-enum Epi { EPI_FWD = 0, EPI_DH = 1, EPI_STORE = 2 };
-
-__device__ __forceinline__ float act_fwd(int act, float v) {
-  if (act == ACT_SOFTPLUS) return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
-  if (act == ACT_RELU) return fmaxf(v, 0.f);
-  return tanhf(v);
-}
-
-// phi'(pre) from the post-activation h = phi(pre)
-__device__ __forceinline__ float act_grad_from_out(int act, float h) {
-  if (act == ACT_SOFTPLUS) return -expm1f(-h);
-  if (act == ACT_RELU) return h > 0.f ? 1.f : 0.f;
-  return 1.f - h * h;
-}
-
-struct EpiParams {
-  const float* bias;      // (N,) or null
-  const float* sigma;     // (M,) per row, or null
-  const float* wsig;      // sigma's weight column, stride wsig_ld, or null
-  int wsig_ld;
-  const float* ctx;       // (M / ssz, ctx_ld) per-item rows, or null
-  int ctx_ld, ssz;
-  const float* hin;       // EPI_DH: post-activation whose phi' scales acc
-  int hin_ld;
-  int act;                // -1: none
-};
-
-// One operand tile (BK x 128 of A or B) staged through registers: each
-// thread holds 4 consecutive elements along the operand's contiguous axis,
-// read as one float4 where the launch found the operand 16-byte aligned
-// (vec) and the 4 lie inside the edge, else as masked scalars.
-// KC (K-contiguous): thread t takes row t/2, k = 4*(t%2) .. +3.
-// else (M/N-contiguous): thread t takes k = t/32, rows 4*(t%32) .. +3.
-template <bool KC>
-__device__ __forceinline__ void load_tile(const float* __restrict__ X, int ld,
-                                          int rows, int r0, int k0, int k_hi,
-                                          bool vec, float (&v)[4]) {
-  const int t = threadIdx.x;
-  if (KC) {
-    const int r = r0 + (t >> 1), k = k0 + (t & 1) * 4;
-    const float* p = X + (long long)r * ld + k;
-    if (vec && r < rows && k + 3 < k_hi) {
-      const float4 q = *reinterpret_cast<const float4*>(p);
-      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = (r < rows && k + i < k_hi) ? p[i] : 0.f;
-    }
-  } else {
-    const int k = k0 + (t >> 5), r = r0 + (t & 31) * 4;
-    const float* p = X + (long long)k * ld + r;
-    if (vec && k < k_hi && r + 3 < rows) {
-      const float4 q = *reinterpret_cast<const float4*>(p);
-      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = (k < k_hi && r + i < rows) ? p[i] : 0.f;
-    }
-  }
-}
-
-template <bool KC>
-__device__ __forceinline__ void store_tile(float (*S)[BM + PAD],
-                                           const float (&v)[4]) {
-  const int t = threadIdx.x;
-  if (KC) {
-    const int r = t >> 1, k = (t & 1) * 4;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) S[k + i][r] = v[i];
-  } else {
-    *reinterpret_cast<float4*>(&S[t >> 5][(t & 31) * 4]) =
-        make_float4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-// C[m, n] = sum_k A(m, k) * B(k, n) over this split's k range, then epilogue.
-// A(m, k) = A_KC ? A[m*lda + k] : A[k*lda + m]
-// B(k, n) = B_KC ? B[n*ldb + k] : B[k*ldb + n]
-// Each thread owns an 8x8 block of C: rows {4ty..4ty+3, 64+4ty..64+4ty+3},
-// columns likewise with tx, read from shared memory as float4s. Two shared
-// buffers: the next k-tile's global loads are in flight while this one is
-// multiplied.
-template <bool A_KC, bool B_KC, int EPI>
-__global__ void __launch_bounds__(NT)
-sgemm_kernel(int M, int N, int K, int k_per_split,
-             const float* __restrict__ A, int lda, bool a_vec,
-             const float* __restrict__ B, int ldb, bool b_vec,
-             float* __restrict__ C, int ldc, long long c_split_stride,
-             EpiParams ep) {
-  __shared__ __align__(16) float As[2][BK][BM + PAD];
-  __shared__ __align__(16) float Bs[2][BK][BN + PAD];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_lo = blockIdx.z * k_per_split;
-  const int k_hi = min(K, k_lo + k_per_split);
-  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
-  C += (long long)blockIdx.z * c_split_stride;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  float ra[4], rb[4];
-  if (n_tiles > 0) {
-    load_tile<A_KC>(A, lda, M, m0, k_lo, k_hi, a_vec, ra);
-    load_tile<B_KC>(B, ldb, N, n0, k_lo, k_hi, b_vec, rb);
-    store_tile<A_KC>(As[0], ra);
-    store_tile<B_KC>(Bs[0], rb);
-  }
-  __syncthreads();
-  for (int t = 0; t < n_tiles; ++t) {
-    const int cur = t & 1;
-    const bool more = t + 1 < n_tiles;
-    if (more) {
-      const int k0 = k_lo + (t + 1) * BK;
-      load_tile<A_KC>(A, lda, M, m0, k0, k_hi, a_vec, ra);
-      load_tile<B_KC>(B, ldb, N, n0, k0, k_hi, b_vec, rb);
-    }
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][4 * ty]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][64 + 4 * ty]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][4 * tx]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][k][64 + 4 * tx]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (more) {
-      store_tile<A_KC>(As[cur ^ 1], ra);
-      store_tile<B_KC>(Bs[cur ^ 1], rb);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
-      if (n >= N) continue;
-      float v = acc[i][j];
-      if (EPI == EPI_FWD) {
-        if (ep.bias) v += ep.bias[n];
-        if (ep.wsig) v += ep.sigma[m] * ep.wsig[(long long)n * ep.wsig_ld];
-        if (ep.ctx) v += ep.ctx[(long long)(m / ep.ssz) * ep.ctx_ld + n];
-        if (ep.act >= 0) v = act_fwd(ep.act, v);
-      } else if (EPI == EPI_DH) {
-        v *= act_grad_from_out(ep.act, ep.hin[(long long)m * ep.hin_ld + n]);
-      }
-      C[(long long)m * ldc + n] = v;
-    }
-  }
-}
-
-// out[s, c] = sum over rows r of segment s of X[r, c] * (w ? w[r] : 1)
-__global__ void seg_colsum_kernel(const float* __restrict__ X, int n, int cols,
-                                  int ldx, int seg, const float* __restrict__ w,
-                                  float* __restrict__ out, int ldo) {
-  const int c = blockIdx.x * COLSUM_THREADS + threadIdx.x;
-  const int s = blockIdx.y;
-  if (c >= cols) return;
-  const int r0 = s * seg, r1 = min(n, r0 + seg);
-  float acc = 0.f;
-  for (int r = r0; r < r1; ++r) {
-    const float v = X[(long long)r * ldx + c];
-    acc = w ? fmaf(v, w[r], acc) : acc + v;
-  }
-  out[(long long)s * ldo + c] = acc;
-}
-
-// out[m*ldo_m + n*ldo_n] = sum_s P[s*M*N + m*N + n], s in order
-__global__ void reduce_splits_kernel(const float* __restrict__ P, int S, int M,
-                                     int N, float* __restrict__ out, int ldo_m,
-                                     int ldo_n) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long MN = (long long)M * N;
-  if (idx >= MN) return;
-  float acc = 0.f;
-  for (int s = 0; s < S; ++s) acc += P[s * MN + idx];
-  const int m = (int)(idx / N), nn = (int)(idx % N);
-  out[(long long)m * ldo_m + (long long)nn * ldo_n] = acc;
-}
-
-__device__ float block_sum(float v) {
-  __shared__ float sh[32];
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  if (lane == 0) sh[warp] = v;
-  __syncthreads();
-  v = threadIdx.x < blockDim.x / 32 ? sh[lane] : 0.f;
-  if (warp == 0)
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // per-block partial sums of (sigma_r * r + eps)^2 over a fixed grid
 __global__ void loss_partial_kernel(const float* __restrict__ r,
@@ -277,14 +65,6 @@ __global__ void loss_partial_kernel(const float* __restrict__ r,
   if (threadIdx.x == 0) partial[blockIdx.x] = acc;
 }
 
-__global__ void loss_final_kernel(const float* __restrict__ partial, int count,
-                                  float inv_total, float* __restrict__ loss) {
-  float acc = 0.f;
-  for (int i = threadIdx.x; i < count; i += blockDim.x) acc += partial[i];
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) loss[0] = acc * inv_total;
-}
-
 // dr = g * 2 * sigma * (sigma * r + eps) / (n * d)
 __global__ void dloss_dr_kernel(const float* __restrict__ r,
                                 const float* __restrict__ eps,
@@ -295,61 +75,6 @@ __global__ void dloss_dr_kernel(const float* __restrict__ r,
   if (i >= total) return;
   const float s = sigma[i / d];
   dr[i] = g[0] * 2.f * s * (s * r[i] + eps[i]) * inv_total;
-}
-
-int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
-
-// k range of one split: ceil(K / splits) rounded up to BK
-int split_len(int K, int splits) {
-  const int kps = cdiv(cdiv(K, splits), BK) * BK;
-  return kps > 0 ? kps : BK;
-}
-
-// float4 loads need a 16-byte aligned base and a leading dimension that
-// keeps every row (or k-row) 16-byte aligned
-bool vec_ok(const float* p, int ld) {
-  return ld % 4 == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// launches over cdiv(K, split_len(K, splits)) <= splits splits
-template <bool A_KC, bool B_KC, int EPI>
-void sgemm(int M, int N, int K, int splits, const float* A, int lda,
-           const float* B, int ldb, float* C, int ldc, const EpiParams& ep,
-           cudaStream_t stream) {
-  const int kps = split_len(K, splits);
-  dim3 grid(cdiv(N, BN), cdiv(M, BM), cdiv(K, kps) > 0 ? cdiv(K, kps) : 1);
-  sgemm_kernel<A_KC, B_KC, EPI><<<grid, NT, 0, stream>>>(
-      M, N, K, kps, A, lda, vec_ok(A, lda), B, ldb, vec_ok(B, ldb), C, ldc,
-      (long long)M * N, ep);
-}
-
-// number of K splits of a weight-gradient SGEMM: enough blocks for ~2 waves
-int wgrad_splits(int M, int N, int K) {
-  const int tiles = cdiv(M, BM) * cdiv(N, BN);
-  int S = cdiv(2 * 132, tiles);
-  const int max_s = cdiv(K, 16 * BK);   // at least 16 k-tiles per split
-  if (S > max_s) S = max_s;
-  if (S < 1) S = 1;
-  // the launch rounds the per-split range up to BK: report the real count
-  // (a fixed point of the rounding, so sgemm launches exactly S splits)
-  const int kS = cdiv(K, split_len(K, S));
-  return kS > 0 ? kS : 1;
-}
-
-int colsum_seg(int n) { return cdiv(n, n < COLSUM_SEGS ? n : COLSUM_SEGS); }
-
-void seg_colsum(const float* X, int n, int cols, int ldx, int seg,
-                const float* w, float* out, int ldo, cudaStream_t stream) {
-  dim3 grid(cdiv(cols, COLSUM_THREADS), cdiv(n, seg));
-  seg_colsum_kernel<<<grid, COLSUM_THREADS, 0, stream>>>(X, n, cols, ldx, seg,
-                                                          w, out, ldo);
-}
-
-void reduce_splits(const float* P, int S, int M, int N, float* out, int ldo_m,
-                   int ldo_n, cudaStream_t stream) {
-  const long long MN = (long long)M * N;
-  reduce_splits_kernel<<<cdiv(MN, 256), 256, 0, stream>>>(P, S, M, N, out,
-                                                          ldo_m, ldo_n);
 }
 
 }  // namespace
@@ -385,7 +110,11 @@ int fused_dsm_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
   int hin_ld = d;
   for (int i = 0; i < n_layers; ++i) {
     const bool last = i == n_layers - 1;
-    EpiParams ep = {};
+    float* out = last ? r : acts + (long long)i * n * act_ld;
+    const int out_ld = last ? d : act_ld;
+    FwdEpi ep = {};
+    ep.C = out;
+    ep.ldc = out_ld;
     ep.bias = B[i];
     ep.act = last ? -1 : act;
     if (i == l0) {
@@ -396,10 +125,8 @@ int fused_dsm_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
       ep.ctx_ld = ctx_ld;
       ep.ssz = ssz;
     }
-    float* out = last ? r : acts + (long long)i * n * act_ld;
-    const int out_ld = last ? d : act_ld;
-    sgemm<true, true, EPI_FWD>(n, out_dims[i], in_dims[i], 1, hin, hin_ld,
-                               W[i], ldw[i], out, out_ld, ep, stream);
+    sgemm<true, true>(n, out_dims[i], in_dims[i], 1, hin, hin_ld, W[i], ldw[i],
+                      ep, stream);
     hin = out;
     hin_ld = out_ld;
   }
@@ -425,37 +152,26 @@ int fused_dsm_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
   float* dp_next = dp1;
   dloss_dr_kernel<<<cdiv(total, 256), 256, 0, stream>>>(
       r, eps, sigma, g, total, d, 1.f / ((float)n * (float)d), dp);
-  const int seg = colsum_seg(n);
-  const int nseg = cdiv(n, seg);
   for (int i = n_layers - 1; i >= 0; --i) {
     const int out = out_dims[i], in = in_dims[i];
     const float* hin = i == 0 ? xbar : acts + (long long)(i - 1) * n * act_ld;
     const int hin_ld = i == 0 ? d : act_ld;
     // dW[:, :in] = dp^T @ hin, split over rows, then a fixed-order sum
     const int S = wgrad_splits(out, in, n);
-    EpiParams none = {};
-    none.act = -1;
-    sgemm<false, false, EPI_STORE>(out, in, n, S, dp, out, hin, hin_ld,
-                                   scratch, in, none, stream);
+    wgrad_partials(out, in, n, S, dp, out, hin, hin_ld, scratch, stream);
     reduce_splits(scratch, S, out, in, dW[i], ldw[i], 1, stream);
     // db = column sums of dp
-    seg_colsum(dp, n, out, out, seg, nullptr, scratch, out, stream);
-    reduce_splits(scratch, nseg, 1, out, dB[i], 0, 1, stream);
+    colsum(dp, n, out, out, nullptr, scratch, dB[i], 1, stream);
     if (i == l0) {
       // sigma's weight column: sum_r sigma_r * dp[r, :]
-      seg_colsum(dp, n, out, out, seg, sigma, scratch, out, stream);
-      reduce_splits(scratch, nseg, 1, out, dW[i] + in, 0, ldw[i], stream);
+      colsum(dp, n, out, out, sigma, scratch, dW[i] + in, ldw[i], stream);
       // d/d ctx_l0: one segment per item
       seg_colsum(dp, n, out, out, ssz, nullptr, dctx, ctx_ld, stream);
     }
     if (i > 0) {
       // dp_next = (dp @ W[:, :in]) * phi'(hin)
-      EpiParams ep = {};
-      ep.hin = hin;
-      ep.hin_ld = hin_ld;
-      ep.act = act;
-      sgemm<true, false, EPI_DH>(n, in, out, 1, dp, out, W[i], ldw[i],
-                                 dp_next, in, ep, stream);
+      const DhEpi ep = {dp_next, in, hin, hin_ld, act};
+      sgemm<true, false>(n, in, out, 1, dp, out, W[i], ldw[i], ep, stream);
       float* t = dp;
       dp = dp_next;
       dp_next = t;

@@ -1,18 +1,18 @@
 """Model factories keyed by the reference CLI names (JAX twin:
-ardae_tpu/models/registry.py). The port has the flagship slice's entries;
-every other name raises NotImplementedError naming the ROADMAP item that
-ports it."""
+ardae_tpu/models/registry.py). The port has the flagship line's and the
+implicit-conv line's entries; every other name raises NotImplementedError
+naming the ROADMAP item that ports it."""
 
 import torch
 
 from ardae_tpu_torch.models.cdae.cardae import MLPGradCARDAE, MLPResCARDAE
+from ardae_tpu_torch.models.ivae.conv import ConvIPVAE
 from ardae_tpu_torch.models.ivae.resconv import ResConvIPVAE
 from ardae_tpu_torch.nn.initializers import init_module
 
 _RESCONV = {"resconv-res": False, "resconvct-res": True}  # name -> do_center
 
 _LATER = {
-    "mnist-conv": "ROADMAP queue 1, slice 1 (item 5, conv implicit VAE)",
     "mlp-concat": "ROADMAP queue 1, slice 4 (item 12)",
     "mnist-concat": "ROADMAP queue 1, slice 4 (item 12)",
     "cdae mlp": "ROADMAP queue 1, slice 4 (item 12, models/cdae/legacy.py)",
@@ -34,7 +34,12 @@ def _init(module, seed, device):
 
 def build_ivae_model(name, *, nchannels=2, nheight=1, z_dim=2, h_dim=128,
                      n_dim=2, n_layers=2, nonlin="relu", seed=0, device="cpu"):
-    """The implicit VAE ``name``, parameters drawn from ``seed``."""
+    """The implicit VAE ``name``, parameters drawn from ``seed``. mnist-conv
+    has fixed widths: ``h_dim`` and ``n_layers`` are not read."""
+    if name == "mnist-conv":
+        model = ConvIPVAE(input_height=nheight, input_channels=nchannels,
+                          z_dim=z_dim, noise_dim=n_dim, nonlinearity=nonlin)
+        return _init(model, seed, device)
     if name not in _RESCONV:
         raise NotImplementedError(
             f"ivae model {name!r} is not ported yet: {_later(name)}")

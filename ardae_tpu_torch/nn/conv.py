@@ -1,6 +1,10 @@
-"""Residual-conv primitives of the flagship slice, NCHW
-(JAX twin: ardae_tpu/nn/conv.py, which is NHWC).
+"""Convolutional primitives, NCHW (JAX twin: ardae_tpu/nn/conv.py, which is
+NHWC).
 
+  * Conv2d and ConvTranspose2d with the torch-1.2 default init or the
+    xavier variant (the conv implicit VAE); ConvTranspose2d keeps torch's
+    (in, out, k, k) weight and output-size law
+    out = (in - 1) * stride - 2 * padding + k + output_padding;
   * torchkit WNconv2d / ResConv2d (reference models/layers2.py:238-330);
   * torchkit ResLinear, here ResLinear2 (reference models/layers2.py:331-352);
   * x2 bilinear upsampling with align_corners=True (reference resconv
@@ -12,8 +16,65 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ardae_tpu_torch.nn.initializers import torch_default_
+from ardae_tpu_torch.nn.initializers import torch_default_, xavier_
 from ardae_tpu_torch.nn.linear import WeightNormalizedLinear
+
+
+def conv_out_size(hin, kernel_size, stride=1, padding=0):
+    """(reference utils/msc.py:43-45)"""
+    return (hin + 2 * padding - kernel_size) // stride + 1
+
+
+class Conv2d(nn.Module):
+    """Plain conv, weight OIHW; torch-1.2 default init (U(+-1/sqrt(fan_in))
+    for weight and bias) or xavier (fan_in = I*k*k, fan_out = O*k*k; zero
+    bias)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, use_bias=True, xavier=False):
+        super().__init__()
+        k = kernel_size
+        self.stride, self.padding, self.xavier = stride, padding, xavier
+        self.fan_in, self.fan_out = in_channels * k * k, out_channels * k * k
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
+
+    def init_params(self, generator):
+        if self.xavier:
+            xavier_(self.weight, self.bias, self.fan_in, self.fan_out, generator)
+        else:
+            torch_default_(self.weight, self.bias, self.fan_in, generator)
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight, self.bias, stride=self.stride,
+                        padding=self.padding)
+
+
+class ConvTranspose2d(nn.Module):
+    """torch ConvTranspose2d, weight (in, out, k, k). Torch's fan convention
+    for that layout: fan_in = out*k*k (the default bound 1/sqrt of it, for
+    weight and bias), fan_out = in*k*k (xavier; zero bias)."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, use_bias=True, xavier=False):
+        super().__init__()
+        k = kernel_size
+        self.stride, self.padding, self.output_padding = stride, padding, output_padding
+        self.xavier = xavier
+        self.fan_in, self.fan_out = out_channels * k * k, in_channels * k * k
+        self.weight = nn.Parameter(torch.empty(in_channels, out_channels, k, k))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
+
+    def init_params(self, generator):
+        if self.xavier:
+            xavier_(self.weight, self.bias, self.fan_in, self.fan_out, generator)
+        else:
+            torch_default_(self.weight, self.bias, self.fan_in, generator)
+
+    def forward(self, x):
+        return F.conv_transpose2d(x, self.weight, self.bias, stride=self.stride,
+                                  padding=self.padding,
+                                  output_padding=self.output_padding)
 
 
 class WNConv2d(nn.Module):

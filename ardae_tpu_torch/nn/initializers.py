@@ -2,8 +2,10 @@
 
 The torch-1.2 default of ``nn.Linear`` and ``nn.Conv2d`` is
 kaiming_uniform(a=sqrt(5)), which equals U(+-1/sqrt(fan_in)) for the weight,
-and U(+-1/sqrt(fan_in)) for the bias. Every draw takes an explicit
-``torch.Generator``; nothing reads the global RNG.
+and U(+-1/sqrt(fan_in)) for the bias. The reference's ``weight_init``
+(models/ivae/mnist.py:20-25) is xavier-uniform weights and zero biases.
+Every draw takes an explicit ``torch.Generator``; nothing reads the global
+RNG.
 """
 
 import math
@@ -28,6 +30,15 @@ def torch_default_(weight: torch.Tensor, bias, fan_in: int,
     uniform_(weight, bound, generator)
     if bias is not None:
         uniform_(bias, bound, generator)
+
+
+def xavier_(weight: torch.Tensor, bias, fan_in: int, fan_out: int,
+             generator: torch.Generator):
+    """Xavier-uniform weight, U(+-sqrt(6 / (fan_in + fan_out))), zero bias."""
+    uniform_(weight, math.sqrt(6.0 / (fan_in + fan_out)), generator)
+    if bias is not None:
+        with torch.no_grad():
+            bias.zero_()
 
 
 def init_module(module: torch.nn.Module, generator: torch.Generator):

@@ -10,21 +10,27 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ardae_tpu_torch.nn.initializers import torch_default_
+from ardae_tpu_torch.nn.initializers import torch_default_, xavier_
 
 
 class Linear(nn.Module):
-    """nn.Linear with torch-1.2 default init."""
+    """nn.Linear with torch-1.2 default init, or xavier-uniform weight and
+    zero bias (``xavier=True``)."""
 
-    def __init__(self, in_features, out_features, use_bias=True):
+    def __init__(self, in_features, out_features, use_bias=True, xavier=False):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
+        self.xavier = xavier
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = (nn.Parameter(torch.empty(out_features))
                      if use_bias else None)
 
     def init_params(self, generator):
-        torch_default_(self.weight, self.bias, self.in_features, generator)
+        if self.xavier:
+            xavier_(self.weight, self.bias, self.in_features,
+                    self.out_features, generator)
+        else:
+            torch_default_(self.weight, self.bias, self.in_features, generator)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)

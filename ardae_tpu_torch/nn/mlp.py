@@ -3,6 +3,8 @@
 Shared shape law: ``num_hidden_layers`` hidden layers of width ``hidden_dim``
 followed by one output layer ``fc``; ``use_nonlinearity_output`` applies the
 activation after fc. Unlike flax, torch needs the input width up front.
+``MLP(xavier=True)`` is the JAX ``_XavierMLP`` (models/ivae/mnist.py:20):
+xavier-uniform weights and zero biases in every layer.
 """
 
 import torch.nn as nn
@@ -13,14 +15,16 @@ from ardae_tpu_torch.nn.linear import Linear, ResLinear
 
 class MLP(nn.Module):
     def __init__(self, input_dim, hidden_dim, output_dim, nonlinearity="relu",
-                 num_hidden_layers=1, use_nonlinearity_output=False):
+                 num_hidden_layers=1, use_nonlinearity_output=False,
+                 xavier=False):
         super().__init__()
         self.afun = get_nonlinear_func(nonlinearity)
         self.use_nonlinearity_output = use_nonlinearity_output
         dims = [input_dim] + [hidden_dim] * num_hidden_layers
         self.layers = nn.ModuleList(
-            Linear(dims[i], dims[i + 1]) for i in range(num_hidden_layers))
-        self.fc = Linear(dims[-1], output_dim)
+            Linear(dims[i], dims[i + 1], xavier=xavier)
+            for i in range(num_hidden_layers))
+        self.fc = Linear(dims[-1], output_dim, xavier=xavier)
 
     def forward(self, x):
         h = x.reshape(x.shape[0], -1)

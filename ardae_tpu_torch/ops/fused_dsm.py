@@ -22,54 +22,24 @@ or raises. There is no fallback.
 
 import ctypes
 import functools
-import os
-import shutil
-import subprocess
-import time
 
 import torch
 
 from ardae_tpu_torch.models.cdae.cardae import dsm_noise
+from ardae_tpu_torch.ops import native
 
-_ACTS = {"softplus": 0, "relu": 1, "tanh": 2}
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO, "ardae_tpu_torch", "csrc", "fused_dsm.cu")
-_BUILD = os.path.join(_REPO, "build")
-_LIB = os.path.join(_BUILD, "libfused_dsm.so")
+ACTS = {"softplus": 0, "relu": 1, "tanh": 2}
 
 # The activation workspace the forward keeps for the backward,
 # (layers - 1) x n x h fp32; the guard caps it (1.6 GB at the flagship).
 MAX_WORKSPACE_BYTES = 16 << 30
 
 
-def _nvcc():
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the fused DSM kernel needs the "
-                           "CUDA toolkit to build")
-    return path
-
-
 @functools.lru_cache(maxsize=1)
 def build_library():
     """Compile ``csrc/fused_dsm.cu`` for sm_90a into ``build/`` (once per
     source change) and load it. Returns (ctypes library, build info dict)."""
-    os.makedirs(_BUILD, exist_ok=True)
-    info = {"seconds": 0.0, "log": "", "built": False}
-    if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
-        tmp = f"{_LIB}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp, _SRC]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        info["seconds"] = time.perf_counter() - t0
-        info["log"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{info['log']}")
-        os.replace(tmp, _LIB)
-        info["built"] = True
-    lib = ctypes.CDLL(_LIB)
+    lib, info = native.load("fused_dsm")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fused_dsm_scratch_floats.argtypes = [i, i, p, p]
     lib.fused_dsm_scratch_floats.restype = ll
@@ -83,8 +53,9 @@ def build_library():
 
 
 def flat_weights(module):
-    """CARDAE (res-style, conditional, split trunk) -> [W0, b0, ..., Wout,
-    bout], torch layout; l0's weight keeps sigma's column as its last."""
+    """CARDAE (conditional, split trunk, either style) -> [W0, b0, ...,
+    Wout, bout], torch layout; l0's weight keeps sigma's column as its
+    last. Also returns l0's index."""
     layers = list(module.inp_encode.layers) + [module.inp_encode.fc,
                                                module.l0_row]
     layers += list(module.trunk_rest.layers) + [module.trunk_rest.fc]
@@ -92,20 +63,6 @@ def flat_weights(module):
     for lin in layers:
         flat += [lin.weight, lin.bias]
     return flat, len(module.inp_encode.layers) + 1
-
-
-def _ptrs(ts):
-    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
-
-
-def _ints(xs):
-    return (ctypes.c_int * len(xs))(*xs)
-
-
-def _check(t, name):
-    if not (t.is_cuda and t.dtype == torch.float32 and t.is_contiguous()):
-        raise ValueError(f"fused DSM kernel: {name} must be a contiguous "
-                         f"float32 CUDA tensor, got {t.dtype} on {t.device}")
 
 
 class FusedDSMFunction(torch.autograd.Function):
@@ -121,7 +78,7 @@ class FusedDSMFunction(torch.autograd.Function):
         for name, t in [("xbar", xbar), ("eps", eps), ("sigma", sigma),
                         ("ctx_l0", ctx_l0)] + [(f"weight {k}", w)
                                                for k, w in enumerate(flat)]:
-            _check(t, name)
+            native.check_operand(t, name)
         n, d = xbar.shape
         bsz, h = ctx_l0.shape
         if n % bsz:
@@ -136,14 +93,14 @@ class FusedDSMFunction(torch.autograd.Function):
         acts = torch.empty((L - 1, n, h), device=dev)
         r = torch.empty((n, d), device=dev)
         loss = torch.empty((), device=dev)
-        n_scratch = lib.fused_dsm_scratch_floats(n, L, _ints(in_dims),
-                                                 _ints(out_dims))
+        n_scratch = lib.fused_dsm_scratch_floats(n, L, native.int_array(in_dims),
+                                                 native.int_array(out_dims))
         scratch = torch.empty(n_scratch, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_dsm_fwd(
-            n, d, n // bsz, L, l0, _ACTS[act], xbar.data_ptr(), eps.data_ptr(),
-            sigma.data_ptr(), ctx_l0.data_ptr(), h, _ptrs(ws), _ptrs(bs),
-            _ints(in_dims), _ints(out_dims), _ints(ldw), acts.data_ptr(), h,
+            n, d, n // bsz, L, l0, ACTS[act], xbar.data_ptr(), eps.data_ptr(),
+            sigma.data_ptr(), ctx_l0.data_ptr(), h, native.ptr_array(ws), native.ptr_array(bs),
+            native.int_array(in_dims), native.int_array(out_dims), native.int_array(ldw), acts.data_ptr(), h,
             r.data_ptr(), scratch.data_ptr(), loss.data_ptr(), stream)
         if err:
             raise RuntimeError(f"fused_dsm_fwd launch failed: CUDA error {err}")
@@ -171,10 +128,10 @@ class FusedDSMFunction(torch.autograd.Function):
         scratch = torch.empty(n_scratch, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_dsm_bwd(
-            n, d, n // ctx.bsz, len(ws), ctx.l0, _ACTS[ctx.act],
+            n, d, n // ctx.bsz, len(ws), ctx.l0, ACTS[ctx.act],
             xbar.data_ptr(), eps.data_ptr(), sigma.data_ptr(), g.data_ptr(),
-            _ptrs(ws), _ints(in_dims), _ints(out_dims), _ints(ldw),
-            acts.data_ptr(), h, r.data_ptr(), _ptrs(dws), _ptrs(dbs),
+            native.ptr_array(ws), native.int_array(in_dims), native.int_array(out_dims), native.int_array(ldw),
+            acts.data_ptr(), h, r.data_ptr(), native.ptr_array(dws), native.ptr_array(dbs),
             dctx.data_ptr(), h, dp0.data_ptr(), dp1.data_ptr(),
             scratch.data_ptr(), stream)
         if err:
@@ -186,14 +143,16 @@ class FusedDSMFunction(torch.autograd.Function):
         return (None, None, None, None, None, dctx, *flat_grads)
 
 
-def dsm_chain_reference(act, l0, xbar, eps, sigma, ctx_l0, *flat):
-    """The kernel's function in plain PyTorch; autograd gives its gradients."""
+def chain_reference(act, l0, x, sigma, ctx_l0, flat):
+    """The layer chain of both DSM kernels in plain PyTorch: x (n, d) through
+    every layer of ``flat`` (act after all but the last), l0 split as in
+    ``CARDAE``; returns the last layer's output."""
     from ardae_tpu_torch.nn.activations import get_nonlinear_func
 
     afun = get_nonlinear_func(act)
-    n = xbar.shape[0]
+    n = x.shape[0]
     bsz, hdim = ctx_l0.shape
-    h = xbar
+    h = x
     ws, bs = flat[0::2], flat[1::2]
     for i, (w, b) in enumerate(zip(ws, bs)):
         if i == l0:
@@ -202,7 +161,13 @@ def dsm_chain_reference(act, l0, xbar, eps, sigma, ctx_l0, *flat):
         else:
             pre = h @ w.T + b
         h = pre if i == len(ws) - 1 else afun(pre)
-    return torch.mean((sigma * h + eps) ** 2)
+    return h
+
+
+def dsm_chain_reference(act, l0, xbar, eps, sigma, ctx_l0, *flat):
+    """The kernel's function in plain PyTorch; autograd gives its gradients."""
+    r = chain_reference(act, l0, xbar, sigma, ctx_l0, flat)
+    return torch.mean((sigma * r + eps) ** 2)
 
 
 def dsm_chain(act, l0, xbar, eps, sigma, ctx_l0, *flat):
@@ -223,7 +188,7 @@ def supports_fused_dsm(module, n_rows):
     (layers - 1) x n_rows x h x 4 B, capped at MAX_WORKSPACE_BYTES."""
     if not (getattr(module, "score_type", None) == "res" and module.conditional
             and module.sigma_conditioned and module.enc_input
-            and module.nonlinearity in _ACTS):
+            and module.nonlinearity in ACTS):
         return False
     if any(p.dtype != torch.float32 for p in module.parameters()):
         return False
@@ -231,7 +196,9 @@ def supports_fused_dsm(module, n_rows):
     return (layers - 1) * n_rows * module.h_dim * 4 <= MAX_WORKSPACE_BYTES
 
 
-def _prepare(module, latent, context, std, generator, eps):
+def prepare_inputs(module, latent, context, std, generator, eps):
+    """The DSM kernels' arguments for a CARDAE (see ``fused_cdae_dsm_loss``):
+    (act, l0, xbar, eps, sigma, ctx_l0, flat weights)."""
     bsz, ssz, d = latent.shape
     n = bsz * ssz
     x = latent.reshape(n, d).to(torch.float32)
@@ -251,7 +218,7 @@ def fused_cdae_dsm_loss(module, latent, context, std, generator=None, eps=None):
     the injected DSM noise (n, d), else drawn from ``generator``. Gradients
     reach every weight and, through d/d(ctx_l0), the context encoder;
     latent, context and std are constants (phase A detaches them)."""
-    act, l0, xbar, eps, sigma, ctx_l0, flat = _prepare(
+    act, l0, xbar, eps, sigma, ctx_l0, flat = prepare_inputs(
         module, latent, context, std, generator, eps)
     return dsm_chain(act, l0, xbar, eps, sigma, ctx_l0, *flat)
 
@@ -259,6 +226,6 @@ def fused_cdae_dsm_loss(module, latent, context, std, generator=None, eps=None):
 def fused_cdae_dsm_loss_reference(module, latent, context, std, generator=None,
                                   eps=None):
     """``fused_cdae_dsm_loss`` in plain PyTorch on any device."""
-    act, l0, xbar, eps, sigma, ctx_l0, flat = _prepare(
+    act, l0, xbar, eps, sigma, ctx_l0, flat = prepare_inputs(
         module, latent, context, std, generator, eps)
     return dsm_chain_reference(act, l0, xbar, eps, sigma, ctx_l0, *flat)

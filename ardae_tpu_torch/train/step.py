@@ -26,6 +26,15 @@ from ardae_tpu_torch.data.loader import gather_batches
 from ardae_tpu_torch.models.cdae.cardae import cdae_loss, cdae_score
 from ardae_tpu_torch.models.ivae import api as ivae_api
 from ardae_tpu_torch.ops.fused_dsm import fused_cdae_dsm_loss, supports_fused_dsm
+from ardae_tpu_torch.ops.fused_dsm_grad import (
+    fused_cdae_dsm_grad_loss,
+    supports_fused_dsm_grad,
+)
+
+# --use-kernels: each cdae style's hand-written kernel and the guard that
+# decides whether it covers a cdae
+_KERNELS = {"res": (supports_fused_dsm, fused_cdae_dsm_loss),
+            "grad": (supports_fused_dsm_grad, fused_cdae_dsm_grad_loss)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,8 +46,9 @@ class StepConfig:
     train_nstd_cdae: int = 1
     train_nz_model: int = 1
     ctx_type: str = "data"  # data | lt0
-    # the hand-written fused DSM kernel (ops/fused_dsm) for phase A; a
-    # config the kernel does not cover raises instead of falling back
+    # the hand-written fused DSM kernels for phase A (ops/fused_dsm for a
+    # res-style cdae, ops/fused_dsm_grad for a grad-style one); a config the
+    # kernel does not cover raises instead of falling back
     use_kernels: bool = False
 
 
@@ -73,6 +83,20 @@ def _sigma_stats(model, x, cfg, generator, latent_eps=None):
     return lsm, sigma, latent_mean
 
 
+def _phase_a_kernel(cdae, n_rows):
+    """The fused DSM loss of ``cdae``'s style, or raise naming the guard
+    that refused it."""
+    guard, loss_fn = _KERNELS[cdae.score_type]
+    if not guard(cdae, n_rows):
+        raise NotImplementedError(
+            f"--use-kernels: {guard.__module__}.{guard.__name__} refused this "
+            f"{cdae.score_type}-style cdae ({cdae.nonlinearity}, h {cdae.h_dim}, "
+            f"{n_rows} rows); the kernel covers the conditional, "
+            "sigma-conditioned, enc_input CARDAE with softplus/relu/tanh in "
+            "fp32 within its workspace cap")
+    return loss_fn
+
+
 def cdae_update(model, cdae, opt_d, cfg, x, generator, draws=None):
     """One PHASE-A update, in place. ``draws``: optional injected
     ``latent_eps`` (B*nz, noise), ``std`` (B, nz*nstd, 1), ``dsm_eps``
@@ -92,17 +116,7 @@ def cdae_update(model, cdae, opt_d, cfg, x, generator, draws=None):
     lsm_exp = lsm if cfg.train_nstd_cdae == 1 else (
         lsm[:, :, None, :].expand(bsz, cfg.train_nz_cdae, cfg.train_nstd_cdae,
                                   zdim).reshape(bsz, ns, zdim))
-    if cfg.use_kernels:
-        if not supports_fused_dsm(cdae, bsz * ns):
-            raise NotImplementedError(
-                "--use-kernels: the fused DSM kernel covers the res-style, "
-                "conditional, sigma-conditioned CARDAE with softplus/relu/tanh "
-                "in fp32 (ops/fused_dsm.supports_fused_dsm); this cdae is not "
-                "covered, and the grad-style kernel is not ported yet "
-                "(ROADMAP queue 2, items 1-2)")
-        loss_fn = fused_cdae_dsm_loss
-    else:
-        loss_fn = cdae_loss
+    loss_fn = _phase_a_kernel(cdae, bsz * ns) if cfg.use_kernels else cdae_loss
     loss = loss_fn(cdae, lsm_exp, ctx, stdmat, generator=generator,
                    eps=draws.get("dsm_eps"))
     opt_d.zero_grad(set_to_none=True)

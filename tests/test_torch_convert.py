@@ -6,7 +6,9 @@ import jax
 import numpy as np
 import pytest
 
+from ardae_tpu.models.cdae import MLPGradCARDAE as JGrad
 from ardae_tpu.models.cdae import MLPResCARDAE as JRes
+from ardae_tpu.models.ivae.conv import ConvIPVAE as JConvIPVAE
 from ardae_tpu.models.ivae.resconv import ResConvIPVAE as JIPVAE
 from ardae_tpu.nn import conv as jconv
 from ardae_tpu.nn import linear as jlin
@@ -16,7 +18,9 @@ from ardae_tpu_torch.convert import (
     flax_to_state_dict,
     state_dict_to_flax,
 )
+from ardae_tpu_torch.models.cdae.cardae import MLPGradCARDAE as TGrad
 from ardae_tpu_torch.models.cdae.cardae import MLPResCARDAE as TRes
+from ardae_tpu_torch.models.ivae.conv import ConvIPVAE as TConvIPVAE
 from ardae_tpu_torch.models.ivae.resconv import ResConvIPVAE as TIPVAE
 from ardae_tpu_torch.nn import conv as tconv
 from ardae_tpu_torch.nn import linear as tlin
@@ -40,6 +44,18 @@ CASES = {
     "cardae_split_l0": lambda: (
         JRes(input_dim=3, context_dim=5, h_dim=8, num_hidden_layers=3),
         TRes(3, 5, 8, 3), (rand(0, 4, 3), rand(1, 4, 5), rand(2, 4, 1))),
+    "conv2d": lambda: (jconv.Conv2d(6, 5, 2, 2, xavier=True),
+                       tconv.Conv2d(2, 6, 5, 2, 2, xavier=True),
+                       (rand(0, 1, 9, 9, 2),)),
+    "conv_transpose2d": lambda: (jconv.ConvTranspose2d(6, 5, 2, 2),
+                                 tconv.ConvTranspose2d(2, 6, 5, 2, 2),
+                                 (rand(0, 1, 4, 4, 2),)),
+    "cardae_grad": lambda: (
+        JGrad(input_dim=3, context_dim=5, h_dim=8, num_hidden_layers=3),
+        TGrad(3, 5, 8, 3), (rand(0, 4, 3), rand(1, 4, 5), rand(2, 4, 1))),
+    "conv_ipvae_nhwc": lambda: (
+        JConvIPVAE(z_dim=4, noise_dim=3), TConvIPVAE(z_dim=4, noise_dim=3),
+        (rand(0, 2, 784), rand(1, 2, 3))),
     "resconv_ipvae_nhwc": lambda: (
         JIPVAE(z_dim=4, noise_dim=3, c_dim=512, h_dim=8, enc_type="res-wn-mlp"),
         TIPVAE(z_dim=4, noise_dim=3, c_dim=512, h_dim=8),
