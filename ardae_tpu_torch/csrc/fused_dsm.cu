@@ -16,29 +16,46 @@
 // Weights are torch-layout (out, ld); l0's sigma column is its last column.
 //
 // Design on this card (what bounds it, and what the design does about it):
-//  * fp32 throughout, on the CUDA cores (no TF32, no tensor cores): the
-//    products are bound by the ~67 TFLOP/s fp32 FMA rate. At the flagship
-//    shape (n = 80,000, d = 32, h = 512, 5 encoder + l0 + 4 hidden + out)
-//    the forward is ~0.38 TFLOP and the backward ~0.75 TFLOP.
-//  * The tiled SGEMM of dsm_sgemm.cuh (128x128x8 block tile, float4 shared
-//    reads, register double buffer, ragged edges masked) with three
-//    operand layouts and fused epilogues: forward (bias, sigma column,
-//    per-item ctx row, activation), backward input gradient (times phi'),
-//    and weight gradient.
+//  * The products bound it. At the flagship shape (n = 80,000, d = 32,
+//    h = 512, 5 encoder + l0 + 4 hidden + out) the forward is 0.383 TFLOP
+//    and the backward 0.763 TFLOP. On the CUDA cores (67 TFLOP/s fp32) that
+//    is 5.7 + 11.4 ms at best; on the tensor cores, fp32-accurate as 3xTF32
+//    (three TF32 products per fp32 product, 495 TFLOP/s at 700 W), 2.32 +
+//    4.62 ms. Plain TF32 would keep ~3 decimal digits and break the
+//    agreement with the fp32 plain version; bf16 is not taken either.
+//  * So every layer's product runs through the tensor-core GEMM of
+//    dsm_sgemm.cuh: mma.sync m16n8k8 TF32 with each operand split in
+//    registers (hi, lo), a 128x128x32 block tile of 8 warps, a 3-stage
+//    cp.async ring in 99-120 KB of dynamic shared memory (one block an SM),
+//    padded tiles whose fragment reads are free of bank conflicts in all
+//    three operand layouts (forward A.W^T, input gradient dp.W, weight
+//    gradient dp^T.h), and the chain's elementwise work in fused epilogues
+//    fed row by row from shared memory: forward (bias, sigma column,
+//    per-item ctx row, activation), backward input gradient (times phi',
+//    its loads batched 16 rows deep), and split-K weight-gradient partials.
+//    Measured on an H100 at 700 W: 45 TFLOP/s in the forward's h x h
+//    products, 57 in the weight gradients, against a 3xTF32 ceiling of
+//    ~105 (mma.sync TF32 peaks at ~310 TFLOP/s, scripts/torch_mma_peak.py;
+//    only wgmma reaches 495), so about 9.3 + 16.7 ms an update.
+//  * l0's weight has stride in + 1 (sigma's column is last), which no
+//    16-byte copy can read: each entry point packs W_l0[:, :in] once into
+//    an aligned copy at the front of its scratch (1 MB at the flagship).
 //  * Workspace, not recompute: the forward writes every hidden post-
 //    activation to a global workspace ((layers-1) x n x h fp32, 1.6 GB at the
 //    flagship); the backward reads it and takes phi' from the post-activation
 //    (softplus: 1 - exp(-h); relu: h > 0; tanh: 1 - h^2). This spends HBM
 //    bytes (~4 GB/update, ~1.3 ms at 3.35 TB/s) to save the third of the
-//    FLOPs a recomputing backward would repeat.
+//    FLOPs a recomputing backward would repeat; that traffic is a larger
+//    share of the time now that the products run on the tensor cores.
 //  * Deterministic reductions, no atomics: the TPU kernel accumulated dW, db
-//    and the loss over a sequential grid. Here dW is a split-K SGEMM whose
+//    and the loss over a sequential grid. Here dW is a split-K GEMM whose
 //    splits each write a partial to scratch, then one pass sums the splits
 //    in a fixed order; db, sigma's column and d/d(ctx_l0) are column sums
 //    over fixed row segments (one segment per item for ctx_l0, which is thus
 //    reduced to (bsz, h) in the kernel); the loss is a fixed-grid block
 //    reduction and one final block. Results are bitwise reproducible run to
-//    run; they differ from a CPU or cuBLAS sum only by summation order.
+//    run; they differ from an fp32 cuBLAS product by summation order and
+//    by the 3xTF32 split's dropped lo*lo term (~2^-22 relative).
 //  * The upstream cotangent g is read from device memory and folded into
 //    d loss / d r, so every gradient comes out already scaled by it.
 //
@@ -85,7 +102,7 @@ extern "C" {
 // LOSS_BLOCKS loss partials).
 long long fused_dsm_scratch_floats(int n, int n_layers, const int* in_dims,
                                    const int* out_dims) {
-  long long need = LOSS_BLOCKS;
+  long long need = LOSS_BLOCKS;   // after the packed l0 weight
   for (int i = 0; i < n_layers; ++i) {
     const long long S = wgrad_splits(out_dims[i], in_dims[i], n);
     const long long w = S * out_dims[i] * in_dims[i];
@@ -93,7 +110,7 @@ long long fused_dsm_scratch_floats(int n, int n_layers, const int* in_dims,
     if (w > need) need = w;
     if (b > need) need = b;
   }
-  return need;
+  return pack_floats(n_layers, in_dims, out_dims) + need;
 }
 
 // Forward. W[i] is (out_dims[i], ldw[i]) row-major, B[i] is (out_dims[i],).
@@ -106,6 +123,9 @@ int fused_dsm_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
                   const float* const* B, const int* in_dims,
                   const int* out_dims, const int* ldw, float* acts, int act_ld,
                   float* r, float* scratch, float* loss, cudaStream_t stream) {
+  float* w_l0 = scratch;
+  scratch += pack_floats(n_layers, in_dims, out_dims);
+  pack_cols(W[l0], out_dims[l0], in_dims[l0], ldw[l0], w_l0, stream);
   const float* hin = xbar;
   int hin_ld = d;
   for (int i = 0; i < n_layers; ++i) {
@@ -125,8 +145,9 @@ int fused_dsm_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
       ep.ctx_ld = ctx_ld;
       ep.ssz = ssz;
     }
-    sgemm<true, true>(n, out_dims[i], in_dims[i], 1, hin, hin_ld, W[i], ldw[i],
-                      ep, stream);
+    sgemm<true, true>(n, out_dims[i], in_dims[i], 1, hin, hin_ld,
+                      i == l0 ? w_l0 : W[i],
+                      i == l0 ? pack_ld(in_dims[i]) : ldw[i], ep, stream);
     hin = out;
     hin_ld = out_ld;
   }
@@ -148,6 +169,9 @@ int fused_dsm_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
                   float* const* dB, float* dctx, int ctx_ld, float* dp0,
                   float* dp1, float* scratch, cudaStream_t stream) {
   const long long total = (long long)n * d;
+  float* w_l0 = scratch;
+  scratch += pack_floats(n_layers, in_dims, out_dims);
+  pack_cols(W[l0], out_dims[l0], in_dims[l0], ldw[l0], w_l0, stream);
   float* dp = dp0;
   float* dp_next = dp1;
   dloss_dr_kernel<<<cdiv(total, 256), 256, 0, stream>>>(
@@ -171,7 +195,8 @@ int fused_dsm_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
     if (i > 0) {
       // dp_next = (dp @ W[:, :in]) * phi'(hin)
       const DhEpi ep = {dp_next, in, hin, hin_ld, act};
-      sgemm<true, false>(n, in, out, 1, dp, out, W[i], ldw[i], ep, stream);
+      sgemm<true, false>(n, in, out, 1, dp, out, i == l0 ? w_l0 : W[i],
+                         i == l0 ? pack_ld(in) : ldw[i], ep, stream);
       float* t = dp;
       dp = dp_next;
       dp_next = t;

@@ -34,17 +34,29 @@
 // -2u), so no pre-activation is stored.
 //
 // Design on this card (what bounds it, and what the design does about it):
-//  * fp32 on the CUDA cores, bound by the ~67 TFLOP/s fp32 FMA rate. At the
-//    implicit-conv line (n = 80,000, d = 32, h = 256, E = 5, H = 4) a pass
-//    over the layers is ~0.6 M MACs a row, 96 GFLOP; the forward makes two
-//    passes (1, 2), the backward four (tangent, two weight-gradient products,
-//    primal adjoint): ~0.58 TFLOP an update. The TPU kernels recomputed
-//    step 2's chain in step 5; here the forward keeps it (d_k), which saves
-//    one pass.
+//  * The products bound it. At the implicit-conv line (n = 80,000, d = 32,
+//    h = 256, E = 5, H = 4) a pass over the layers is ~0.6 M MACs a row,
+//    96 GFLOP; the forward makes two passes (1, 2), the backward four
+//    (tangent, two weight-gradient products, primal adjoint): 0.192 +
+//    0.384 TFLOP an update. On the CUDA cores (67 TFLOP/s fp32) that is
+//    2.87 + 5.73 ms at best; on the tensor cores, fp32-accurate as 3xTF32
+//    (495 TFLOP/s TF32 at 700 W, three products each), 1.16 + 2.33 ms. The
+//    second-order tangents need fp32's accuracy (they are ~1e-9 early in
+//    training), which 3xTF32 keeps and plain TF32 or bf16 would not. The
+//    TPU kernels recomputed step 2's chain in step 5; here the forward
+//    keeps it (d_k), which saves one pass.
 //  * No block can hold a row tile's whole chain (a (128, 256) fp32 tile is
 //    128 KB of 227 KB), so each layer of each chain is one launch of the
-//    shared SGEMM, with the chain's elementwise work fused in its epilogue;
-//    weights stream from L2.
+//    shared tensor-core GEMM of dsm_sgemm.cuh (mma.sync m16n8k8 TF32, each
+//    operand split in registers into hi and lo, a 128x128x32 block tile of
+//    8 warps, a 3-stage cp.async ring in 99-120 KB of dynamic shared
+//    memory, bank-conflict-free fragment reads in all three operand
+//    layouts), with the chain's elementwise work fused in its epilogue, fed
+//    row by row from shared memory with its loads batched; weights stream
+//    from L2. l0's weight (stride in + 1) is packed once per entry point
+//    into an aligned copy at the front of the scratch. Measured on an H100
+//    at 700 W: ~35 TFLOP/s in the h x h forward and tangent products, 57 in
+//    the weight gradients, against a 3xTF32 ceiling of ~105 (mma.sync).
 //  * Workspace: u_k and d_k from the forward, tu_k and c_k in the backward,
 //    4 x (L-1) x n x h fp32 (3.3 GB at the line), read back by the later
 //    products. The top layer's adjoint seeds (w_out broadcast) never become
@@ -67,9 +79,12 @@ struct ResidEpi {
   const float* sigma;
   const float* eps;
   int d;
-  __device__ __forceinline__ void operator()(int m, int n, float v) const {
-    const long long i = (long long)m * d + n;
-    R[i] = fmaf(-sigma[m], v, eps[i]);
+  struct In { float sigma, eps; };
+  __device__ __forceinline__ In load(int m, int n) const {
+    return {sigma[m], eps[(long long)m * d + n]};
+  }
+  __device__ __forceinline__ void store(int m, int n, float v, In in) const {
+    R[(long long)m * d + n] = fmaf(-in.sigma, v, in.eps);
   }
 };
 
@@ -82,11 +97,15 @@ struct TangentEpi {
   const float* delta;
   int ld;
   int act;
-  __device__ __forceinline__ void operator()(int m, int n, float v) const {
+  struct In { float u, delta; };
+  __device__ __forceinline__ In load(int m, int n) const {
     const long long i = (long long)m * ld + n;
-    const float uu = u[i];
-    tu[i] = act_grad_from_out(act, uu) * v;
-    c[i] = delta[i] * act_curv_from_out(act, uu) * v;
+    return {u[i], delta[i]};
+  }
+  __device__ __forceinline__ void store(int m, int n, float v, In in) const {
+    const long long i = (long long)m * ld + n;
+    tu[i] = act_grad_from_out(act, in.u) * v;
+    c[i] = in.delta * act_curv_from_out(act, in.u) * v;
   }
 };
 
@@ -97,9 +116,13 @@ struct RevEpi {
   const float* c;
   int ld;
   int act;
-  __device__ __forceinline__ void operator()(int m, int n, float v) const {
+  struct In { float u, c; };
+  __device__ __forceinline__ In load(int m, int n) const {
     const long long i = (long long)m * ld + n;
-    ap[i] = fmaf(v, act_grad_from_out(act, u[i]), c[i]);
+    return {u[i], c[i]};
+  }
+  __device__ __forceinline__ void store(int m, int n, float v, In in) const {
+    ap[(long long)m * ld + n] = fmaf(v, act_grad_from_out(act, in.u), in.c);
   }
 };
 
@@ -145,7 +168,7 @@ extern "C" {
 long long fused_dsm_grad_scratch_floats(int n, int n_layers,
                                         const int* in_dims,
                                         const int* out_dims) {
-  long long need = LOSS_BLOCKS;
+  long long need = LOSS_BLOCKS;   // after the packed l0 weight
   for (int k = 0; k < n_layers; ++k) {
     const long long S = wgrad_splits(out_dims[k], in_dims[k], n);
     const long long w = 2 * S * out_dims[k] * in_dims[k];
@@ -155,7 +178,7 @@ long long fused_dsm_grad_scratch_floats(int n, int n_layers,
     if (b > need) need = b;
     if (b2 > need) need = b2;
   }
-  return need;
+  return pack_floats(n_layers, in_dims, out_dims) + need;
 }
 
 // Forward, steps 1-3. W[k] is (out_dims[k], ldw[k]) row-major, B[k] is
@@ -172,6 +195,11 @@ int fused_dsm_grad_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
                        float* loss, cudaStream_t stream) {
   const int top = n_layers - 2;
   const long long nh = (long long)n * h;
+  float* w_l0 = scratch;
+  scratch += pack_floats(n_layers, in_dims, out_dims);
+  pack_cols(W[l0], out_dims[l0], in_dims[l0], ldw[l0], w_l0, stream);
+  auto wmat = [&](int k) { return k == l0 ? (const float*)w_l0 : W[k]; };
+  auto wld = [&](int k) { return k == l0 ? pack_ld(in_dims[k]) : ldw[k]; };
   // 1. forward chain: acts[k] = phi(z_k)
   const float* hin = xbar;
   int hin_ld = d;
@@ -189,8 +217,8 @@ int fused_dsm_grad_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
       ep.ctx_ld = ctx_ld;
       ep.ssz = ssz;
     }
-    sgemm<true, true>(n, out_dims[k], in_dims[k], 1, hin, hin_ld, W[k], ldw[k],
-                      ep, stream);
+    sgemm<true, true>(n, out_dims[k], in_dims[k], 1, hin, hin_ld, wmat(k),
+                      wld(k), ep, stream);
     hin = acts + k * nh;
     hin_ld = h;
   }
@@ -199,12 +227,13 @@ int fused_dsm_grad_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
       acts + top * nh, W[n_layers - 1], nh, h, act, deltas + top * nh);
   for (int k = top; k >= 1; --k) {
     const DhEpi ep = {deltas + (k - 1) * nh, h, acts + (k - 1) * nh, h, act};
-    sgemm<true, false>(n, in_dims[k], out_dims[k], 1, deltas + k * nh, h, W[k],
-                       ldw[k], ep, stream);
+    sgemm<true, false>(n, in_dims[k], out_dims[k], 1, deltas + k * nh, h,
+                       wmat(k), wld(k), ep, stream);
   }
   // 3. g = d_0 @ W_0, R = eps - sigma * g, loss = sum(R^2) / N
   const ResidEpi ep = {R, sigma, eps, d};
-  sgemm<true, false>(n, d, out_dims[0], 1, deltas, h, W[0], ldw[0], ep, stream);
+  sgemm<true, false>(n, d, out_dims[0], 1, deltas, h, wmat(0), wld(0), ep,
+                     stream);
   sumsq_partial_kernel<<<LOSS_BLOCKS, 256, 0, stream>>>(R, (long long)n * d,
                                                         scratch);
   loss_final_kernel<<<1, 256, 0, stream>>>(scratch, LOSS_BLOCKS,
@@ -229,6 +258,11 @@ int fused_dsm_grad_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
   const int top = n_layers - 2;
   const long long nh = (long long)n * h;
   const long long total = (long long)n * d;
+  float* w_l0 = scratch;
+  scratch += pack_floats(n_layers, in_dims, out_dims);
+  pack_cols(W[l0], out_dims[l0], in_dims[l0], ldw[l0], w_l0, stream);
+  auto wmat = [&](int k) { return k == l0 ? (const float*)w_l0 : W[k]; };
+  auto wld = [&](int k) { return k == l0 ? pack_ld(in_dims[k]) : ldw[k]; };
   // 4. tangent chain along w
   tangent_seed_kernel<<<cdiv(total, 256), 256, 0, stream>>>(
       R, sigma, g, total, d, 1.f / ((float)n * (float)d), tan0);
@@ -237,8 +271,8 @@ int fused_dsm_grad_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
   for (int k = 0; k <= top; ++k) {
     const TangentEpi ep = {tans + k * nh, curvs + k * nh, acts + k * nh,
                            deltas + k * nh, h, act};
-    sgemm<true, true>(n, out_dims[k], in_dims[k], 1, tin, tin_ld, W[k], ldw[k],
-                      ep, stream);
+    sgemm<true, true>(n, out_dims[k], in_dims[k], 1, tin, tin_ld, wmat(k),
+                      wld(k), ep, stream);
     tin = tans + k * nh;
     tin_ld = h;
   }
@@ -269,7 +303,7 @@ int fused_dsm_grad_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
       float* next = bufs[k & 1];
       const RevEpi ep = {next, acts + (k - 1) * nh, curvs + (k - 1) * nh, h,
                          act};
-      sgemm<true, false>(n, in, out, 1, ap, h, W[k], ldw[k], ep, stream);
+      sgemm<true, false>(n, in, out, 1, ap, h, wmat(k), wld(k), ep, stream);
       ap = next;
     }
   }

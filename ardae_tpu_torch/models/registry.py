@@ -1,7 +1,9 @@
 """Model factories keyed by the reference CLI names (JAX twin:
 ardae_tpu/models/registry.py). The port has the flagship line's and the
 implicit-conv line's entries; every other name raises NotImplementedError
-naming the ROADMAP item that ports it."""
+naming the ROADMAP item that ports it. Both build functions put the module
+on the card unless the caller asks for the CPU (``device="cpu"``); without
+a card that default raises rather than falling back."""
 
 import torch
 
@@ -33,7 +35,7 @@ def _init(module, seed, device):
 
 
 def build_ivae_model(name, *, nchannels=2, nheight=1, z_dim=2, h_dim=128,
-                     n_dim=2, n_layers=2, nonlin="relu", seed=0, device="cpu"):
+                     n_dim=2, n_layers=2, nonlin="relu", seed=0, device="cuda"):
     """The implicit VAE ``name``, parameters drawn from ``seed``. mnist-conv
     has fixed widths: ``h_dim`` and ``n_layers`` are not read."""
     if name == "mnist-conv":
@@ -64,7 +66,7 @@ def context_dim_for(ctx_type, *, model_name, nchannels, nheight, z_dim, h_dim):
 
 
 def build_cdae(name, *, input_dim, context_dim, h_dim=128, n_layers=2,
-               nonlin="relu", seed=0, device="cpu"):
+               nonlin="relu", seed=0, device="cuda"):
     if name == "mlp-res":
         make = MLPResCARDAE
     elif name == "mlp-grad":

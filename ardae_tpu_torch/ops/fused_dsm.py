@@ -49,6 +49,8 @@ def build_library():
     lib.fused_dsm_bwd.argtypes = (
         [i] * 6 + [p, p, p, p, p, p, p, p, p, i, p, p, p, p, i, p, p, p, p])
     lib.fused_dsm_bwd.restype = i
+    lib.dsm_sgemm_smem_bytes.argtypes = [i, i]
+    lib.dsm_sgemm_smem_bytes.restype = i
     return lib, info
 
 
@@ -182,10 +184,12 @@ def dsm_chain(act, l0, xbar, eps, sigma, ctx_l0, *flat):
 def supports_fused_dsm(module, n_rows):
     """The kernel covers the res-style, conditional, sigma-conditioned,
     enc_input CARDAE with a softplus, relu or tanh activation, in fp32, for
-    any row count. Its tiles (128x128x8 SGEMM blocks, 128-column sums) loop
-    over every dimension and mask the edges, so they bound no width; the
-    bound is the activation workspace the forward keeps for the backward,
-    (layers - 1) x n_rows x h x 4 B, capped at MAX_WORKSPACE_BYTES."""
+    any row count. Its tiles (tensor-core GEMM blocks of 128x128x32, whose
+    3-stage ring takes 99-120 KB of the 227 KB of shared memory a block may
+    have, whatever the width; 32-column sums) loop over every dimension and
+    mask the edges, so they bound no width; the bound is the activation
+    workspace the forward keeps for the backward, (layers - 1) x n_rows x h
+    x 4 B, capped at MAX_WORKSPACE_BYTES."""
     if not (getattr(module, "score_type", None) == "res" and module.conditional
             and module.sigma_conditioned and module.enc_input
             and module.nonlinearity in ACTS):

@@ -180,10 +180,12 @@ def workspace_bytes(module, n_rows):
 def supports_fused_dsm_grad(module, n_rows):
     """The kernel covers the grad-style, conditional, sigma-conditioned,
     enc_input CARDAE with a softplus, relu or tanh activation, in fp32, for
-    any row count and width: its tiles (128x128x8 SGEMM blocks, 128-column
-    sums) loop over every dimension and mask the edges. The bound is the
-    workspace (``workspace_bytes``), capped at MAX_WORKSPACE_BYTES (3.3 GB at
-    the implicit-conv line)."""
+    any row count and width: its tiles (tensor-core GEMM blocks of
+    128x128x32, whose 3-stage ring takes 99-120 KB of the 227 KB of shared
+    memory a block may have, whatever the width; 32-column sums) loop over
+    every dimension and mask the edges. The bound is the workspace
+    (``workspace_bytes``), capped at MAX_WORKSPACE_BYTES (3.3 GB at the
+    implicit-conv line)."""
     if not (getattr(module, "score_type", None) == "grad" and module.conditional
             and module.sigma_conditioned and module.enc_input
             and module.nonlinearity in ACTS):

@@ -5,19 +5,28 @@
 Phases (each failure exits non-zero):
   1. needs a CUDA device; prints the card's name and power limit;
   2. builds the hand-written kernels from ardae_tpu_torch/csrc/ with nvcc for
-     sm_90a (into build/), one nvcc per source, all started together;
+     sm_90a (into build/), one nvcc per source, all started together; prints
+     each kernel instantiation's registers, shared memory and spills (from
+     -Xptxas -v) and the GEMM ring's dynamic shared memory, and counts the
+     tensor-core instructions (HMMA) in each library's SASS with cuobjdump,
+     where the toolkit has it: a count of 0 fails;
   3. holds the res-style fused DSM kernel (forward and backward) against its
      plain PyTorch version, fp32 with TF32 off for every matmul and
      convolution: at the flagship shape (n = 128 x 625 rows, d 32, h 512, 5
-     layers, softplus) and at one ragged small shape per activation;
+     layers, softplus) and at one ragged small shape per activation; at the
+     flagship shape it also runs the kernel twice and fails unless loss and
+     gradients are bitwise equal;
   3b. the same for the grad-style (second-order) kernel: at the
      implicit-conv line's shape (n = 128 x 625, d 32, h 256, 5 layers,
      softplus) and at ragged small shapes. Bounds for both: loss relative
      error <= 1e-5; every gradient, d/d(ctx_l0) included,
-     ||kernel - plain|| / ||plain|| <= 1e-4 (fp32 sums in another order);
+     ||kernel - plain|| / ||plain|| <= 1e-4 (3xTF32 products, fp32 sums in
+     another order);
   4. times the res-style kernel and its plain version at the flagship shape,
   4b. and the grad-style pair at the implicit-conv shape (CUDA events,
-     warm-up, median of 7, in the order plain, kernel, kernel, plain);
+     warm-up, median of 7, in the order plain, kernel, kernel, plain), and
+     the chain's matrix products alone as torch.matmul calls (fp32, TF32
+     off: the yardstick library_ms, which the port never calls);
   5. drives the main path, cli.ivae_ardae with the flags of the flagship
      dbMNIST line (scripts/run_vae_dbmnist.sh:35) plus --use-kernels, for 6
      steps,
@@ -27,14 +36,19 @@ Phases (each failure exits non-zero):
      update and the other kernel never, that every logged loss is finite,
      that the parameters moved, and that the trained encoder gives finite
      latents of the expected shape.
-Then it prints the kernels' JSON line, the card line, and as its last line
-{"ok": true, "device": {...}}.
+Then it prints the kernels' JSON line (each kernel's launches on the main
+path, error, times, FLOP, launches per step, and its bound: the larger of
+3 x FLOP over the 495 TFLOP/s TF32 tensor-core peak, the kernel's products
+being 3xTF32, and its inputs' and outputs' bytes over 3.35 TB/s; beside it
+the fp32 CUDA-core bound, FLOP over 67 TFLOP/s; H100 SXM peaks at 700 W),
+the card line, and as its last line {"ok": true, "device": {...}}.
 """
 
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -82,6 +96,7 @@ SMOKE_ARGS = ["--use-kernels", "--max-iters", "6", "--log-interval", "2",
               "--skip-final-test-eval", "--no-resume"]
 STEPS = 6
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
+TF32_FLOPS, FP32_FLOPS, HBM_BYTES = 495e12, 67e12, 3.35e12   # H100 SXM, 700 W
 
 
 def fail(msg):
@@ -94,6 +109,100 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "unknown"
+
+
+def ptxas_report(log):
+    """[(kernel, registers, static smem bytes, spill stores, spill loads)]
+    of every entry function in an nvcc -Xptxas -v log."""
+    rows = []
+    for block in re.split(r"Compiling entry function '", log)[1:]:
+        name = block.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        rows.append((name, int(regs.group(1)) if regs else -1,
+                     int(smem.group(1)) if smem else 0,
+                     int(spill.group(1)) if spill else -1,
+                     int(spill.group(2)) if spill else -1))
+    filt = shutil.which("c++filt")
+    if filt and rows:
+        out = subprocess.run([filt], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60).stdout
+        names = out.splitlines()
+        if len(names) == len(rows):
+            rows = [(n.replace("(anonymous namespace)::", "").split("(")[0].replace(
+                "void ", ""),) + r[1:] for n, r in zip(names, rows)]
+    return rows
+
+
+def hmma_count(lib):
+    """HMMA instructions in a library's SASS, or None without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass {lib} failed: {out.stderr[-2000:]}")
+    return sum("HMMA" in ln for ln in out.stdout.splitlines())
+
+
+def products(kind, args):
+    """The matrix products of one kernel entry point, (op, layer), op one of
+    forward (x . W^T), input_grad (dp . W), weight_grad (dp^T . h): the res
+    kernel's layers all; the grad kernel's hidden layers (its h -> 1 head
+    has no product). Returns ({"fwd": [...], "bwd": [...]}, [(out, in)])."""
+    ws, l0 = args[6::2], args[1]
+    dims = [(w.shape[0], w.shape[1] - (i == l0)) for i, w in enumerate(ws)]
+    layers = range(len(dims) if kind == "res" else len(dims) - 1)
+    fwd = [("forward", i) for i in layers]
+    dgrad = [("input_grad", i) for i in layers if i > 0]
+    wgrad = [("weight_grad", i) for i in layers]
+    if kind == "res":
+        return {"fwd": fwd, "bwd": wgrad + dgrad}, dims
+    # grad style: forward + input-gradient chain (down to d e / d xbar);
+    # tangent chain + two weight-gradient products a layer + primal adjoint
+    return {"fwd": fwd + dgrad + [("input_grad", 0)],
+            "bwd": fwd + wgrad + wgrad + dgrad}, dims
+
+
+def flops(kind, args):
+    ops, dims = products(kind, args)
+    n = args[2].shape[0]
+    return {w: sum(2.0 * n * dims[i][0] * dims[i][1] for _, i in ops[w])
+            for w in ops}
+
+
+def io_bytes(args, leaves):
+    """Bytes the function must move: each input read once and each output
+    written once (fwd: inputs -> loss; bwd: inputs and the cotangent ->
+    every gradient)."""
+    inputs = sum(t.numel() for t in args[2:]) * 4
+    return {"fwd": inputs + 4, "bwd": inputs + 4 + sum(t.numel() for t in leaves) * 4}
+
+
+def library_ms(torch, kind, args):
+    """Median ms of the entry points' matrix products alone, as
+    torch.matmul calls on operands of the kernel's shapes (fp32, TF32 off)."""
+    ops, dims = products(kind, args)
+    ws, n, dev = args[6::2], args[2].shape[0], args[2].device
+    width = max(max(o, i) for o, i in dims)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(n, width, generator=g, device=dev)
+    y = torch.randn(n, width, generator=g, device=dev)
+
+    def run(which):
+        for op, i in ops[which]:
+            out, inn = dims[i]
+            w = ws[i][:, :inn].detach()
+            if op == "forward":
+                torch.matmul(x[:, :inn], w.t())
+            elif op == "input_grad":
+                torch.matmul(x[:, :out], w)
+            else:
+                torch.matmul(x[:, :out].t(), y[:, :inn])
+
+    return {w: time_ms(torch, lambda: run(w)) for w in ("fwd", "bwd")}
 
 
 def dsm_case(prepare, build_cdae, torch, dev, cdae_name, bsz, ssz, d, h,
@@ -178,6 +287,17 @@ def check_kernel(torch, dev, build_cdae, k, what):
     if not (lrel <= LOSS_RTOL and grel <= GRAD_RTOL):
         fail(f"{k['cdae']} kernel disagrees with the plain version at the "
              f"{k['line_name']} shape")
+    leaves = [args[5]] + list(args[6:])
+    runs = []
+    for _ in range(2):
+        loss = k["fn"].apply(*args)
+        runs.append([loss.detach()] + grads(torch, loss, leaves))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        fail(f"{k['cdae']} kernel is not bitwise repeatable at the "
+             f"{k['line_name']} shape")
+    print(f"{what} repeat {k['cdae']} at the {k['line_name']} shape: loss and "
+          f"{len(leaves)} gradients bitwise equal over two runs", flush=True)
     return args, labs, gabs
 
 
@@ -195,11 +315,18 @@ def time_kernel(torch, k, args, what, card):
         del loss
     med = {n: [statistics.median(x[i] for x in v) for i in range(3)]
            for n, v in times.items()}
+    lib = library_ms(torch, k["kind"], args)
+    med["library"] = [lib["fwd"], lib["bwd"], lib["fwd"] + lib["bwd"]]
+    fl = flops(k["kind"], args)
     print(f"{what} time {k['cdae']} at the {k['line_name']} shape (median of 7, "
           f"two turns each): kernel fwd {med['kernel'][0]:.3f} ms bwd "
           f"{med['kernel'][1]:.3f} ms fwd+bwd {med['kernel'][2]:.3f} ms | plain "
           f"fwd {med['plain'][0]:.3f} ms bwd {med['plain'][1]:.3f} ms fwd+bwd "
-          f"{med['plain'][2]:.3f} ms | {card}", flush=True)
+          f"{med['plain'][2]:.3f} ms | products alone (torch.matmul fp32) fwd "
+          f"{lib['fwd']:.3f} ms bwd {lib['bwd']:.3f} ms | kernel "
+          f"{fl['fwd'] / med['kernel'][0] / 1e9:.1f} / "
+          f"{fl['bwd'] / med['kernel'][1] / 1e9:.1f} TFLOP/s fwd / bwd | {card}",
+          flush=True)
     return med
 
 
@@ -280,13 +407,13 @@ def main():
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} | {card} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    res = {"cdae": "mlp-res", "fn": fd.FusedDSMFunction,
+    res = {"cdae": "mlp-res", "kind": "res", "fn": fd.FusedDSMFunction,
            "plain": fd.dsm_chain_reference, "prepare": fd.prepare_inputs,
            "line_name": "flagship", "updates": 2,
            "ragged": [(3, 37, 5, 24, 2, a, 1) for a in ("softplus", "relu", "tanh")]
            + [(4, 300, 32, 136, 3, "tanh", 2)],
            "line": (128, 625, 32, 512, 5, "softplus", 3)}
-    grad = {"cdae": "mlp-grad", "fn": fg.FusedDSMGradFunction,
+    grad = {"cdae": "mlp-grad", "kind": "grad", "fn": fg.FusedDSMGradFunction,
             "plain": fg.dsm_grad_chain_reference, "prepare": fd.prepare_inputs,
             "line_name": "implicit-conv", "updates": 1,
             "ragged": [(3, 37, 5, 24, 2, a, 1) for a in ("softplus", "relu", "tanh")]
@@ -299,20 +426,36 @@ def main():
     fd.build_library()
     fg.build_library()
     for name, inf in info.items():
-        regs = re.findall(r"Used (\d+) registers", inf["log"])
-        print(f"phase 2 build {name}.cu: nvcc sm_90a {inf['seconds']:.1f} s; "
-              f"registers per kernel {regs}", flush=True)
+        print(f"phase 2 build {name}.cu: nvcc sm_90a {inf['seconds']:.1f} s "
+              f"(built now: {inf['built']})", flush=True)
+        for kname, regs, smem, st, ld in ptxas_report(inf["log"]):
+            print(f"phase 2   {kname}: {regs} registers, {smem} B static smem, "
+                  f"spills {st} B stored / {ld} B loaded", flush=True)
+    lib, _ = fd.build_library()
+    ring = {f"{'K' if a else 'MN'}-contiguous A, {'K' if b else 'MN'}-contiguous B":
+            lib.dsm_sgemm_smem_bytes(a, b) for a, b in ((1, 1), (1, 0), (0, 0))}
+    print(f"phase 2 GEMM ring dynamic smem per block: {ring}", flush=True)
+    for name in info:
+        count = hmma_count(native.lib_path(name))
+        if count is None:
+            print(f"phase 2 {name}: cuobjdump not found, HMMA not counted", flush=True)
+            continue
+        print(f"phase 2 {name}: {count} HMMA instructions in the SASS", flush=True)
+        if count == 0:
+            fail(f"{name} has no tensor-core instruction")
     print(f"phase 2 both built and loaded in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     # fp32 comparisons: TF32 off for every matmul and convolution
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    errs, med = {}, {}
+    errs, med, work = {}, {}, {}
     for k, what in ((res, "phase 3"), (grad, "phase 3b")):
         args, labs, gabs = check_kernel(torch, dev, build_cdae, k, what)
         errs[k["cdae"]] = (labs, gabs)
         med[k["cdae"]] = time_kernel(torch, k, args, what.replace("3", "4"), card)
+        work[k["cdae"]] = (flops(k["kind"], args),
+                           io_bytes(args, [args[5]] + list(args[6:])))
         del args
         torch.cuda.empty_cache()
 
@@ -331,10 +474,17 @@ def main():
 
     def entry(name, k, source, replaces, which):
         m = med[k["cdae"]]
+        part = ("fwd", "bwd")[which]
+        flop, nbytes = (w[part] for w in work[k["cdae"]])
+        ops_ms, bytes_ms = 3 * flop / TF32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": errs[k["cdae"]][which], "ms": m["kernel"][which],
-                "plain_ms": m["plain"][which]}
+                "plain_ms": m["plain"][which], "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "library_ms": m["library"][which], "flop": flop,
+                "launches_per_step": k["updates"],
+                "fp32_bound_ms": flop / FP32_FLOPS * 1e3}
 
     grad_sites = ("ardae_tpu/ops/fused_dsm_grad.py:114 and "
                   "ardae_tpu/ops/fused_dsm_grad2.py:90")

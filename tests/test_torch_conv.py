@@ -157,7 +157,8 @@ def test_ivae_loss_injected_eps(pair):
 
 def test_registry_builds_xavier_model():
     m = build_ivae_model("mnist-conv", nchannels=1, nheight=28, z_dim=32,
-                         h_dim=0, n_dim=100, n_layers=0, nonlin="softplus", seed=0)
+                         h_dim=0, n_dim=100, n_layers=0, nonlin="softplus", seed=0,
+                         device="cpu")
     assert isinstance(m, TIPVAE)
     assert m.fc4_eps.bias is None
     assert all(float(b.detach().abs().max()) == 0.0
