@@ -1,12 +1,14 @@
 """Driver plumbing (JAX twin: ardae_tpu/cli/common.py): experiment naming
-and resume directory, the host index stream, and chunk boundaries. The IWS
-evaluators wait (ROADMAP queue 1, slice 1 item 9)."""
+and resume directory, the host index stream, chunk boundaries, and the IWS
+evaluation of an implicit VAE over a split. The baseline VAE's IWAE
+evaluator waits (ROADMAP queue 1, slice 3)."""
 
 import datetime
 import glob
 import os
 
 import numpy as np
+import torch
 
 from ardae_tpu_torch.io.logging import get_time
 
@@ -71,3 +73,42 @@ def chunk_until_boundary(i_ep, intervals, end_iter=None, max_chunk=200):
     if end_iter is not None:
         k = min(k, max(1, end_iter - i_ep))
     return max(1, k)
+
+
+def evaluate_iws_ivae(model, eval_data, iws_samples, generator=None,
+                      binarize=False, batch=None, jitter=0.0, draws=None):
+    """Mean IWS log-likelihood over an eval split (reference
+    ivae_ardae.py:644-673), without autograd.
+
+    The bound is per item, so the grouping ``batch`` does not change the
+    math; None picks max(1, min(128, 2**25 // (iws_samples * 784))) items.
+    The tail batch is simply shorter. A dynamically binarized split draws
+    each batch's pixels anew. ``draws``: optional per-batch list of
+    {"bin": (nv, D) uniforms, "eps": (nv*ssz, noise_dim), "new_eps":
+    (nv, ssz, z_dim)}; otherwise every draw comes from ``generator``."""
+    from ardae_tpu_torch.models.ivae.api import logprob_iws
+
+    if batch is None:
+        batch = max(1, min(128, (1 << 25) // (iws_samples * 28 * 28)))
+    device = next(model.parameters()).device
+    data = torch.as_tensor(eval_data, device=device)
+    sums = []
+    with torch.no_grad():
+        for i, start in enumerate(range(0, data.shape[0], batch)):
+            d = draws[i] if draws else {}
+            x = data[start:start + batch]
+            if binarize:
+                u = d.get("bin")
+                if u is None:
+                    u = torch.rand(x.shape, generator=generator, device=device)
+                x = (u.to(device) < x).to(torch.float32)
+            per_item = logprob_iws(model, x, iws_samples, jitter=jitter,
+                                   reduce="per_item", generator=generator,
+                                   eps=d.get("eps"), new_eps=d.get("new_eps"))
+            sums.append(torch.sum(per_item))
+    total = float(torch.stack(sums).double().sum()) if sums else 0.0
+    return total / max(data.shape[0], 1)
+
+
+class EndIterError(Exception):
+    """Final-mode stop (reference utils/msc.py:112-113)."""

@@ -4,18 +4,24 @@ The whole reference flag surface parses (reference ivae_ardae.py:32-196).
 The port trains the flagship line (resconv-res / resconvct-res) and the
 implicit-conv line (mnist-conv, which takes ``--model-h-dim 0
 --model-n-layers 0``), each with an mlp-res or mlp-grad cdae on the MNIST
-family; ``--use-kernels`` sends phase A to the hand-written fused DSM kernel
-of the cdae's style. Flags and cadences the port does not cover raise
-NotImplementedError naming their ROADMAP item whenever the run would use
-them; none is ignored in silence.
+family and sbMNIST; ``--use-kernels`` sends phase A to the hand-written
+fused DSM kernel of the cdae's style. The whole pipeline runs: train, the
+val IWS eval every ``--eval-iws-interval`` steps with ``best-checkpoint``
+on improvement, ``checkpoint`` every ``--ckpt-interval`` steps, resume from
+it, ``--train-mode final`` (train+val up to the best checkpoint's
+iteration, ``final-checkpoint``), and the test IWS eval from the best (or
+final) checkpoint. The eval draws come from a generator of their own,
+seeded from (``--seed``, iteration), never from the training generator, so
+neither the eval cadence nor a resume shifts the training noise. Flags and
+cadences the port does not cover raise NotImplementedError naming their
+ROADMAP item whenever the run would use them; none is ignored in silence.
 
 Device: ``--no-cuda`` selects the CPU, as in the reference; otherwise the
 run needs a CUDA device and raises without one.
 """
 
 import argparse
-import glob
-import os
+import math
 import sys
 import time
 
@@ -165,22 +171,7 @@ def derive_experiment(opt):
 
 
 _Q = "ROADMAP queue 1, "
-
-
-def _unsupported_cadences(opt, total_iters):
-    """The cadences a run of ``total_iters`` steps would reach that the port
-    does not have yet, each with the ROADMAP item that ports it."""
-    out = []
-    if opt.eval_iws_interval > 0 and total_iters >= opt.eval_iws_interval:
-        out.append(f"IWS eval (--eval-iws-interval {opt.eval_iws_interval}): "
-                   f"{_Q}slice 1 item 9")
-    if opt.ckpt_interval > 0 and total_iters >= opt.ckpt_interval:
-        out.append(f"checkpoints (--ckpt-interval {opt.ckpt_interval}): "
-                   f"{_Q}slice 1 item 9")
-    if opt.vis_interval > 0 and total_iters >= opt.vis_interval:
-        out.append(f"visualization (--vis-interval {opt.vis_interval}): "
-                   f"{_Q}slice 6 item 14")
-    return out
+TEST_EVAL_TAG = 999_983  # the test eval's generator tag (JAX: fold_in(k_eval, 999_983))
 
 
 def _unsupported_flags(opt):
@@ -191,11 +182,6 @@ def _unsupported_flags(opt):
     if opt.lmbd_init != 0.0 or opt.lmbd_fin != 0.0:
         out.append("jacobian clamping (--lmbd-*) is dormant in the reference "
                    "too: every model's jac_clamping_loss raises")
-    if opt.train_mode == "final":
-        out.append(f"--train-mode final: {q}slice 1 item 9 (checkpoint, final mode)")
-    if not opt.skip_final_test_eval:
-        out.append("the final test-set IWS eval (pass --skip-final-test-eval): "
-                   f"{q}slice 1 item 9")
     if opt.m_weight_avg != "none":
         out.append(f"--m-weight-avg {opt.m_weight_avg}: {q}slice 6 item 14")
     if "bfloat16" in (opt.cdae_compute_dtype, opt.model_compute_dtype):
@@ -210,6 +196,13 @@ def _unsupported_flags(opt):
     return out
 
 
+def eval_generator(seed, tag, device):
+    """The generator of one eval, seeded from (seed, tag): the val eval at
+    iteration i takes tag i, the test eval TEST_EVAL_TAG."""
+    state = np.random.SeedSequence([seed, tag]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
 def main(argv=None):
     run(argv)
     return 0
@@ -220,12 +213,19 @@ def run(argv=None):
     opt = build_parser().parse_args(argv)
 
     from ardae_tpu_torch.cli.common import (
+        EndIterError,
         IndexStream,
         chunk_until_boundary,
+        evaluate_iws_ivae,
         resolve_experiment_path,
     )
     from ardae_tpu_torch.core.annealing import annealing_func
     from ardae_tpu_torch.data import get_dataset
+    from ardae_tpu_torch.io.checkpoint import (
+        load_checkpoint,
+        load_end_iter,
+        save_checkpoint,
+    )
     from ardae_tpu_torch.io.logging import logging, make_writer
     from ardae_tpu_torch.models.registry import (
         build_cdae,
@@ -243,8 +243,9 @@ def run(argv=None):
         device = torch.device("cpu")
     elif torch.cuda.is_available():
         device = torch.device("cuda")
-        # the reference trains in full fp32; cuDNN would run convolutions in
-        # TF32 by default
+        # the reference trains and evaluates in full fp32; cuDNN would run
+        # convolutions in TF32 by default, and the IWS covariance feeds a
+        # Cholesky
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     else:
@@ -254,9 +255,13 @@ def run(argv=None):
         v = getattr(opt, name)
         if v is None or v < 1:
             setattr(opt, name, None)
+    opt.best_val_loss = None
+    final_mode = opt.train_mode == "final"
+    prefix = "final-" if final_mode else ""
 
-    # data first: the iteration count decides which cadences the run reaches
-    splits = get_dataset(opt.dataset, root=opt.data_root)
+    # data first: the iteration count decides whether the run reaches the
+    # visualization cadence
+    splits = get_dataset(opt.dataset, root=opt.data_root, final_mode=final_mode)
     info = splits["info"]
     train_np = splits["train"]
     n_train = train_np.shape[0]
@@ -265,19 +270,18 @@ def run(argv=None):
     total_iters = opt.epochs * steps_per_epoch
     if opt.max_iters is not None:
         total_iters = min(total_iters, opt.max_iters)
-    missing = _unsupported_cadences(opt, total_iters)
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
 
     if opt.cache is None:
         opt.cache = "experiments"
     if opt.experiment is None:
         opt.experiment = derive_experiment(opt)
     opt.path = resolve_experiment_path(opt.cache, opt.experiment, opt.resume)
-    if opt.resume and glob.glob(os.path.join(opt.path, "*checkpoint*")):
+    end_iter = load_end_iter(opt.path, "best-checkpoint") if final_mode else None
+    reach = total_iters if end_iter is None else min(total_iters, end_iter)
+    if 0 < opt.vis_interval <= reach:
         raise NotImplementedError(
-            f"resuming from {opt.path}: ROADMAP queue 1, slice 1 item 9 "
-            "(checkpoint and resume); pass --no-resume")
+            f"not ported yet: visualization (--vis-interval {opt.vis_interval}): "
+            f"{_Q}slice 6 item 14")
     logging(str(opt), path=opt.path)
     writer = make_writer(opt.path)
     if info.get("synthetic"):
@@ -328,15 +332,55 @@ def run(argv=None):
         return annealing_func(opt.beta_init, opt.beta_fin, opt.beta_annealing, step)
 
     generator = torch.Generator(device=device).manual_seed(opt.seed)
+
+    # resume: state, training noise stream, i_ep and the best val bound
+    i_ep = 0
+    restored = load_checkpoint(state, opt.path, f"{prefix}checkpoint", generator)
+    if restored is not None:
+        meta = restored[1]
+        i_ep = int(meta["i_ep"])
+        best = float(meta["best_val_loss"])
+        opt.best_val_loss = None if best == -math.inf else best
+        logging(f"| resumed from {prefix}checkpoint at iter {i_ep}", path=opt.path)
+
     data_dev = torch.as_tensor(train_np, device=device)
     stream = IndexStream(n_train, bs, seed=opt.seed + 1)
     binarize = bool(info.get("binarize", False))
 
-    i_ep = 0
+    def ckpt_meta():
+        return {
+            "i_ep": i_ep,
+            "epoch": i_ep // steps_per_epoch + 1,
+            "batch_idx": i_ep % steps_per_epoch,
+            "train_num_iters_per_epoch": steps_per_epoch,
+            "best_val_loss": (opt.best_val_loss if opt.best_val_loss is not None
+                              else -math.inf),
+        }
+
+    def save(flavor):
+        t0 = time.time()
+        save_checkpoint(state, ckpt_meta(), opt.path, flavor, generator)
+        logging(f"| saved {flavor} at iter {i_ep} ({time.time() - t0:.2f} s)",
+                path=opt.path)
+
+    def evaluate(split, tag):
+        """(mean IWS bound, seconds) of a split."""
+        t0 = time.time()
+        logprob = evaluate_iws_ivae(
+            state.model, splits[split], opt.iws_samples,
+            eval_generator(opt.seed, tag, device), binarize=binarize,
+            batch=opt.eval_batch_size)
+        return logprob, time.time() - t0
+
     start_time = time.time()
     try:
         while i_ep < total_iters:
-            k = chunk_until_boundary(i_ep, [opt.log_interval])
+            if final_mode and i_ep >= end_iter:
+                raise EndIterError
+            k = chunk_until_boundary(
+                i_ep, [opt.log_interval, opt.vis_interval,
+                       opt.eval_iws_interval, opt.ckpt_interval],
+                end_iter=end_iter)
             k = min(k, total_iters - i_ep)
             c_idx = stream.take(k * opt.num_cdae_updates).reshape(
                 k, opt.num_cdae_updates, bs)
@@ -350,7 +394,8 @@ def run(argv=None):
                 m = {kk: float(v) for kk, v in metrics.items()}
                 if not all(np.isfinite(v) for v in m.values()):
                     logging("| NaN/Inf training metrics at iter "
-                            f"{i_ep} — halting training early: "
+                            f"{i_ep} — halting training early (best "
+                            "checkpoint preserved; the test eval reloads it): "
                             + ", ".join(f"{kk}={vv}" for kk, vv in m.items()),
                             path=opt.path)
                     break
@@ -385,11 +430,55 @@ def run(argv=None):
                                   m["std_eff_min"], i_ep)
                 writer.add_scalar(f"{mode}/cdae/lr/step", opt.d_lr, i_ep)
                 start_time = time.time()
+
+            t_side = time.time()
+            if (not final_mode and opt.eval_iws_interval > 0
+                    and i_ep % opt.eval_iws_interval == 0):
+                logprob, secs = evaluate("val", i_ep)
+                writer.add_scalar("val/logprob/iws/step", logprob, i_ep)
+                logging("-" * 89, path=opt.path)
+                logging("| val       | iter {:d} | epoch {:3d} | {:5d}/{:5d} "
+                        "| sec/step {:5.2f} | logprob (iws) {:.4f} ".format(
+                            i_ep, epoch, batch_idx, steps_per_epoch, secs,
+                            logprob), path=opt.path)
+                logging("-" * 89, path=opt.path)
+                if opt.best_val_loss is None or logprob > opt.best_val_loss:
+                    opt.best_val_loss = logprob
+                    save("best-checkpoint")
+            if opt.ckpt_interval > 0 and i_ep % opt.ckpt_interval == 0:
+                save(f"{prefix}checkpoint")
+            # eval and checkpoint time stays out of the next ms/step
+            start_time += time.time() - t_side
+
     except KeyboardInterrupt:
         logging("-" * 89, path=opt.path)
         logging("Exiting from training early", path=opt.path)
         logging("-" * 89, path=opt.path)
-    logging("| skipping final test eval (--skip-final-test-eval)", path=opt.path)
+        writer.close()
+        return state, opt.path
+    except EndIterError:
+        save(f"{prefix}checkpoint")
+        writer.flush()
+        logging("-" * 89, path=opt.path)
+        logging("End of training (final)", path=opt.path)
+        logging("-" * 89, path=opt.path)
+
+    if opt.skip_final_test_eval:
+        logging("| skipping final test eval (--skip-final-test-eval)",
+                path=opt.path)
+    else:
+        flavor = f"{prefix}checkpoint" if final_mode else "best-checkpoint"
+        if load_checkpoint(state, opt.path, flavor) is None:
+            # e.g. a NaN halt before the first eval: no best checkpoint was
+            # written, so the number below is the live state's
+            logging(f"| warning: no {flavor} on disk — evaluating the live "
+                    "train state instead", path=opt.path)
+        logprob, secs = evaluate("test", TEST_EVAL_TAG)
+        writer.add_scalar("test/logprob/iws/step", logprob, 0)
+        logging("-" * 89, path=opt.path)
+        logging("| test       | sec/step {:5.2f} | logprob (iws) {:.4f} ".format(
+            secs, logprob), path=opt.path)
+        logging("-" * 89, path=opt.path)
     writer.close()
     return state, opt.path
 

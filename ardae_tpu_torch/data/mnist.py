@@ -1,20 +1,25 @@
-"""MNIST splits of the flagship slice (JAX twin: ardae_tpu/data/mnist.py).
+"""MNIST splits (JAX twin: ardae_tpu/data/mnist.py): dynamically binarized
+MNIST (mnist, cmnist, dbmnist, dbmnist-val5k) and Larochelle's statically
+binarized MNIST (sbmnist).
 
-Real idx files under ``{root}/MNIST/raw/`` are used when present; otherwise a
-deterministic class-structured synthetic surrogate stands in and
-``info["synthetic"]`` says so. The train/val split permutation is seeded and
-cached under ``{root}/MNIST/``. The arrays are byte-identical to the JAX
-package's (the tests check it). Splits are float32 numpy [N, 784]; the
-driver moves them to the device once. Static binarization (sbmnist), mnist32
-and StackedMNIST wait (ROADMAP queue 1, slices 2 and 6).
+Real files are used when present: idx files under ``{root}/MNIST/raw/``,
+amat files under ``{root}/bmnist/``; otherwise a deterministic
+class-structured synthetic surrogate stands in and ``info["synthetic"]``
+says so. The train/val split permutation is seeded and cached under
+``{root}/MNIST/``. The arrays are byte-identical to the JAX package's (the
+tests check it). Splits are float32 numpy [N, 784]; the driver moves them
+to the device once. mnist32 and StackedMNIST wait (ROADMAP queue 1,
+slice 6).
 """
 
 import os
 import struct
+import warnings
 
 import numpy as np
 
 _N_TRAIN, _N_TEST = 60_000, 10_000
+_SB_TRAIN, _SB_VAL, _SB_TEST = 50_000, 10_000, 10_000
 
 
 # ----------------------------- idx readers --------------------------------
@@ -51,6 +56,23 @@ def load_idx_labels(path):
         return None
     arr = _read_idx(path, 2049)
     return None if arr is None else arr.astype(np.int64)
+
+
+def load_amat(path, n_cols):
+    """Whitespace-separated text matrix -> float32 [N, n_cols] (a one-time
+    host parse); the values are one flat stream, which must fill whole
+    rows."""
+    with warnings.catch_warnings():
+        # numpy warns, and stops, at text it cannot parse
+        warnings.simplefilter("error", DeprecationWarning)
+        try:
+            flat = np.fromfile(path, dtype=np.float32, sep=" ")
+        except DeprecationWarning as e:
+            raise ValueError(f"{path}: {e}") from None
+    if flat.size == 0 or flat.size % n_cols:
+        raise ValueError(
+            f"{path}: {flat.size} values do not fill rows of {n_cols}")
+    return flat.reshape(-1, n_cols)
 
 
 # ------------------------- synthetic surrogate -----------------------------
@@ -125,6 +147,23 @@ def _load_mnist_arrays(root):
     return tr_x, tr_y, te_x, te_y, True, False
 
 
+def _load_sbmnist_arrays(root):
+    """Larochelle's statically binarized splits (reference
+    datasets/sbmnist.py:44-80) or one fixed Bernoulli draw of the surrogate."""
+    d = os.path.join(root, "bmnist")
+    paths = {s: os.path.join(d, f"binarized_mnist_{s}.amat")
+             for s in ("train", "valid", "test")}
+    if all(os.path.exists(p) for p in paths.values()):
+        tr, va, te = (load_amat(paths[s], n_cols=784)
+                      for s in ("train", "valid", "test"))
+        return tr, va, te, False
+    rng = np.random.default_rng(1_000_007)
+    gray, _ = _synthetic_mnist(_SB_TRAIN + _SB_VAL + _SB_TEST, seed=1_000_005)
+    binary = (rng.random(gray.shape) < gray).astype(np.float32)
+    return (binary[:_SB_TRAIN], binary[_SB_TRAIN:_SB_TRAIN + _SB_VAL],
+            binary[_SB_TRAIN + _SB_VAL:], True)
+
+
 def _val_split_indices(root, dataset, n, val_size):
     """Cached, seeded split permutation (reference datasets/mnist.py:60-67);
     the same file and content as the JAX package's."""
@@ -168,5 +207,25 @@ def get_mnist(dataset, root="data", final_mode=False):
             "nclasses": 10,
             "image_size": 28,
             "labels": {"train": train_y, "val": val_y, "test": te_y},
+        },
+    }
+
+
+def get_sbmnist(root="data", final_mode=False):
+    """Statically binarized MNIST (reference get_sbmnist,
+    datasets/mnist.py:94-123); final mode folds val into train."""
+    tr, va, te, synthetic = _load_sbmnist_arrays(root)
+    if final_mode:
+        tr, va = np.concatenate([tr, va], axis=0), None
+    return {
+        "train": tr,
+        "val": va,
+        "test": te,
+        "info": {
+            "binarize": False,  # binary on disk already
+            "center": False,
+            "synthetic": synthetic,
+            "nclasses": 10,
+            "image_size": 28,
         },
     }

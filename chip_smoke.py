@@ -35,7 +35,25 @@ Phases (each failure exits non-zero):
      launch counter at 0 and checks that its kernel launched once per cdae
      update and the other kernel never, that every logged loss is finite,
      that the parameters moved, and that the trained encoder gives finite
-     latents of the expected shape.
+     latents of the expected shape;
+  6. drives the flagship pipeline through cli.ivae_ardae with the line's
+     flags plus --use-kernels, evals and checkpoints every 2 steps, IWS-256
+     at eval batch 128, in one experiment directory: a 4-step run (val
+     evals over the whole 5k val split at iters 2 and 4, best-checkpoint,
+     checkpoint, the test eval over the whole 10k test split from
+     best-checkpoint), a run that resumes it up to iter 6 and must log only
+     iter 6, and a --train-mode final run that trains to the best
+     checkpoint's iteration less one on train+val and writes
+     final-checkpoint. Each run starts with every launch counter at 0 and
+     checks 2 fwd + 2 bwd res launches a step (none during eval), that
+     every logged IWS is finite and negative, and that its checkpoint files
+     exist; it prints each eval's seconds and items/s. It then times a save
+     of the trained state and its load into fresh modules on the card and
+     on the CPU, each bit for bit equal to the saved tensors, and holds
+     logprob_iws and cov_gaussian_iws_from_draws on the card against the
+     same functions on the CPU (the trained flagship model, 16 val items,
+     the same injected draws, TF32 off): per item |card - CPU| <= 1e-3
+     nats.
 Then it prints the kernels' JSON line (each kernel's launches on the main
 path, error, times, FLOP, launches per step, and its bound: the larger of
 3 x FLOP over the 495 TFLOP/s TF32 tensor-core peak, the kernel's products
@@ -95,6 +113,9 @@ SMOKE_ARGS = ["--use-kernels", "--max-iters", "6", "--log-interval", "2",
               "--eval-iws-interval", "0", "--ckpt-interval", "0",
               "--skip-final-test-eval", "--no-resume"]
 STEPS = 6
+PIPELINE_ARGS = ["--use-kernels", "--log-interval", "2", "--eval-iws-interval", "2",
+                 "--ckpt-interval", "2", "--eval-batch-size", "128"]
+IWS_ATOL = 1e-3   # nats, per item, card against CPU
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
 TF32_FLOPS, FP32_FLOPS, HBM_BYTES = 495e12, 67e12, 3.35e12   # H100 SXM, 700 W
 
@@ -387,6 +408,213 @@ def drive_line(torch, dev, k, line_args, model, build_ivae_model, build_cdae,
     return launches
 
 
+def pipeline_run(torch, kernels, path_log, argv, what):
+    """One driver run of phase 6 with every launch counter at 0 just
+    before; returns (state, path, launches, the run's new log lines)."""
+    from ardae_tpu_torch.cli import ivae_ardae
+
+    before = 0
+    if path_log and os.path.exists(path_log):
+        with open(path_log) as f:
+            before = len(f.readlines())
+    for k in kernels:
+        for name in k["fn"].launches:
+            k["fn"].launches[name] = 0
+    t0 = time.perf_counter()
+    state, path = ivae_ardae.run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c for k in kernels for n, c in k["fn"].launches.items()}
+    with open(os.path.join(path, "log.txt")) as f:
+        lines = f.readlines()[before:]
+    print(f"{what}: driver run in {wall:.1f} s", flush=True)
+    return state, path, launches, lines
+
+
+def check_pipeline_run(k, launches, lines, steps, iters, n_evals, files, path,
+                       what):
+    """Phase 6's checks of one run: res launches 2 fwd + 2 bwd a step and
+    nothing else, the logged iterations, finite negative IWS, the files."""
+    expected = {n: (steps * k["updates"] if n in k["fn"].launches else 0)
+                for n in launches}
+    if launches != expected:
+        fail(f"{what}: kernel launches {launches}, expected {expected}")
+    logged = [ln.split("|")[1].strip() for ln in lines if ln.startswith("| iter ")]
+    if logged != iters:
+        fail(f"{what}: logged {logged}, expected {iters}")
+    evals = []
+    for ln in lines:
+        if ln.startswith("| val") or ln.startswith("| test"):
+            split = ln.split("|")[1].strip()
+            secs = float(re.search(r"sec/step\s+(\S+)", ln).group(1))
+            lp = float(re.search(r"logprob \(iws\) (\S+)", ln).group(1))
+            evals.append((split, secs, lp))
+    if len(evals) != n_evals:
+        fail(f"{what}: {len(evals)} evals logged, expected {n_evals}")
+    for split, secs, lp in evals:
+        if not (math.isfinite(lp) and lp < 0):
+            fail(f"{what}: {split} IWS {lp} is not finite and negative")
+        items = 5000 if split == "val" else 10000
+        print(f"{what}: {split} IWS-256 {lp:.4f} over {items} items in "
+              f"{secs:.2f} s = {items / secs:.0f} items/s", flush=True)
+    missing = [f for f in files if not os.path.exists(os.path.join(path, f))]
+    if missing:
+        fail(f"{what}: missing checkpoint files {missing}")
+    return evals
+
+
+def fresh_like(torch, state, device):
+    """A TrainState of ``state``'s structure on ``device``: the modules
+    copied with zeroed parameters, new optimizers with empty state."""
+    import copy
+
+    from ardae_tpu_torch.train.state import create_train_state
+
+    parts = []
+    for net, opt in ((state.model, state.opt_model), (state.cdae, state.opt_cdae)):
+        m = copy.deepcopy(net).to(device)
+        with torch.no_grad():
+            for p in m.parameters():
+                p.zero_()
+        # the load restores the hyperparameters with the state
+        parts += [m, type(opt)(m.parameters(), opt.defaults["lr"])]
+    return create_train_state(*parts)
+
+
+def state_tensors(state):
+    """Every tensor and scalar of a TrainState, by name."""
+    sd = state.state_dict()
+    out = {"step": sd["step"]}
+    for part in ("model", "cdae"):
+        out.update({f"{part}.{k}": v for k, v in sd[part].items()})
+    for part in ("opt_model", "opt_cdae"):
+        out.update({f"{part}.{i}.{n}": x for i, st in sd[part]["state"].items()
+                    for n, x in st.items()})
+    return out
+
+
+def checkpoint_roundtrip(torch, state, tmp, what):
+    """Save the trained state and load it into fresh states on the card and
+    on the CPU, timed; every tensor must come back bit for bit."""
+    from ardae_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    torch.randn(7, generator=gen, device="cuda")
+    want = {k: (v.detach().cpu().clone() if isinstance(v, torch.Tensor) else v)
+            for k, v in state_tensors(state).items()}
+    meta = {"i_ep": state.step, "epoch": 1, "batch_idx": state.step,
+            "train_num_iters_per_epoch": 429, "best_val_loss": -100.0}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    target = save_checkpoint(state, meta, tmp, "roundtrip", gen)
+    save_s = time.perf_counter() - t0
+    print(f"{what}: checkpoint of {os.path.getsize(target) / 2**20:.1f} MiB "
+          f"({len(want)} entries) saved from the card in {save_s:.3f} s", flush=True)
+    for device in ("cuda", "cpu"):
+        fresh = fresh_like(torch, state, device)
+        # a generator's state is the card's Philox or the CPU's Mersenne
+        # twister: it goes back into a generator of its own device only
+        gen2 = torch.Generator(device="cuda").manual_seed(6) if device == "cuda" else None
+        t0 = time.perf_counter()
+        _, meta2 = load_checkpoint(fresh, tmp, "roundtrip", gen2)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got = state_tensors(fresh)
+        if got.keys() != want.keys() or meta2 != meta:
+            fail(f"{what}: checkpoint keys or meta differ after a load on {device}")
+        for key, v in want.items():
+            g = got[key]
+            same = (torch.equal(g.detach().cpu(), v) and g.device.type == device
+                    if isinstance(v, torch.Tensor) else g == v)
+            if not same:
+                fail(f"{what}: {key} differs after a save and a load on {device}")
+        if gen2 is not None and not torch.equal(gen2.get_state(), gen.get_state()):
+            fail(f"{what}: generator state differs after a load on {device}")
+        print(f"{what}: checkpoint loaded onto {device} in {load_s:.3f} s, every "
+              "tensor bit for bit equal", flush=True)
+        del fresh
+
+
+def iws_card_vs_cpu(torch, state, data_root, what):
+    """logprob_iws and cov_gaussian_iws_from_draws on the card against the
+    CPU: the trained model copied, 16 binarized val items, the same draws."""
+    import copy
+
+    from ardae_tpu_torch.data import get_dataset
+    from ardae_tpu_torch.models.ivae import api as ivae_api
+
+    g = torch.Generator().manual_seed(17)
+    val = torch.as_tensor(get_dataset("dbmnist-val5k", root=data_root)["val"][:16])
+    x = (torch.rand(val.shape, generator=g) < val).float()
+    ssz, zdim, noise = 256, state.model.z_dim, state.model.noise_dim
+    eps = torch.randn(16 * ssz, noise, generator=g)
+    new_eps = torch.randn(16, ssz, zdim, generator=g)
+    models = {"cuda": state.model, "cpu": copy.deepcopy(state.model).cpu()}
+    out = {}
+    with torch.no_grad():
+        z = ivae_api.sample_latents(models["cpu"], x, ssz, eps=eps)
+        for dev, m in models.items():
+            out[dev] = (
+                ivae_api.logprob_iws(m, x.to(dev), ssz, reduce="per_item",
+                                     eps=eps.to(dev), new_eps=new_eps.to(dev)).cpu(),
+                ivae_api.cov_gaussian_iws_from_draws(
+                    m, x.to(dev), z.to(dev), eps=new_eps.to(dev)).cpu())
+    for i, name in enumerate(("logprob_iws", "cov_gaussian_iws_from_draws")):
+        card, cpu = out["cuda"][i], out["cpu"][i]
+        if not (bool(torch.isfinite(card).all()) and bool(torch.isfinite(cpu).all())):
+            fail(f"{what}: {name} is not finite")
+        diff = float((card - cpu).abs().max())
+        print(f"{what}: {name} card vs CPU at the flagship model, 16 items, "
+              f"IWS-256: max per-item |diff| {diff:.2e} nats (bound "
+              f"{IWS_ATOL:.0e}); card mean {float(card.mean()):.4f}", flush=True)
+        if not diff <= IWS_ATOL:
+            fail(f"{what}: {name} card and CPU differ by {diff:.2e} nats")
+
+
+def drive_pipeline(torch, res, kernels, card):
+    """Phase 6: the flagship pipeline train -> val eval -> best-checkpoint ->
+    test eval -> resume -> final mode, then the checkpoint roundtrip and the
+    IWS card-vs-CPU check."""
+    from ardae_tpu_torch.io.checkpoint import load_end_iter
+
+    what = "phase 6"
+    with tempfile.TemporaryDirectory() as tmp:
+        base = FLAGSHIP_ARGS + PIPELINE_ARGS + [
+            "--cache", os.path.join(tmp, "exp"),
+            "--data-root", os.path.join(tmp, "data")]
+        t0 = time.perf_counter()
+        state, path, launches, lines = pipeline_run(
+            torch, kernels, None, base + ["--max-iters", "4", "--no-resume"],
+            f"{what} train")
+        check_pipeline_run(res, launches, lines, 4, ["iter 2", "iter 4"], 3,
+                           ["checkpoint", "best-checkpoint"], path, f"{what} train")
+        log = os.path.join(path, "log.txt")
+        state, path2, launches, lines = pipeline_run(
+            torch, kernels, log, base + ["--max-iters", "6", "--resume"],
+            f"{what} resume")
+        if path2 != path:
+            fail(f"{what} resume: went to {path2}, not {path}")
+        check_pipeline_run(res, launches, lines, 2, ["iter 6"], 2,
+                           ["checkpoint", "best-checkpoint"], path, f"{what} resume")
+        end_iter = load_end_iter(path, "best-checkpoint")
+        state, path3, launches, lines = pipeline_run(
+            torch, kernels, log, base + ["--train-mode", "final", "--resume"],
+            f"{what} final")
+        if path3 != path:
+            fail(f"{what} final: went to {path3}, not {path}")
+        check_pipeline_run(res, launches, lines, end_iter,
+                           [f"iter {i}" for i in range(2, end_iter + 1, 2)], 1,
+                           ["final-checkpoint"], path, f"{what} final")
+        print(f"{what}: train (4 steps), resume (to 6), final mode ({end_iter} "
+              f"steps on train+val) in {time.perf_counter() - t0:.1f} s, kernel "
+              f"launches checked per run | {card}", flush=True)
+        checkpoint_roundtrip(torch, state, tmp, what)
+        iws_card_vs_cpu(torch, state, os.path.join(tmp, "data"), what)
+        del state
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -471,6 +699,8 @@ def main():
             torch, dev, k, line_args, model, build_ivae_model, build_cdae, kernels,
             what, card).items() if n in k["fn"].launches})
         torch.cuda.empty_cache()
+
+    drive_pipeline(torch, res, kernels, card)
 
     def entry(name, k, source, replaces, which):
         m = med[k["cdae"]]

@@ -1,7 +1,9 @@
 """The port's driver, ardae_tpu_torch.cli.ivae_ardae, on the CPU (--no-cuda):
 2-step runs of the flagship line and of the implicit-conv line at a tiny
-width on dbmnist-val5k, and the flags and configs the port does not cover,
-which must raise."""
+width on dbmnist-val5k and of the flagship on sbMNIST; the whole pipeline
+(val IWS eval, best and periodic checkpoints, the test eval from the best
+checkpoint, resume, final mode) on val and test splits cut to 64 items; and
+the flags and configs the port does not cover, which must raise."""
 
 import math
 import os
@@ -75,10 +77,7 @@ def test_implicit_conv_line_two_steps_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--eval-iws-interval", "1"], "IWS eval"),
-    (["--ckpt-interval", "2"], "checkpoints"),
     (["--vis-interval", "1"], "visualization"),
-    (["--train-mode", "final"], "final"),
     (["--cdae-compute-dtype", "bfloat16"], "bf16"),
     (["--dp-devices", "2"], "dp-devices"),
     (["--profile-dir", "prof"], "profile"),
@@ -89,10 +88,90 @@ def test_unsupported_flags_raise(tmp_path, extra, what):
         ivae_ardae.run(_args(tmp_path, *extra))
 
 
-def test_final_test_eval_raises(tmp_path):
-    args = [a for a in _args(tmp_path) if a != "--skip-final-test-eval"]
-    with pytest.raises(NotImplementedError, match="final test-set IWS eval"):
-        ivae_ardae.run(args)
+@pytest.fixture
+def small_splits(monkeypatch):
+    """The driver's get_dataset with val and test cut to 64 items."""
+    import ardae_tpu_torch.data as data
+
+    real = data.get_dataset
+
+    def get_dataset(name, root="data", final_mode=False):
+        s = dict(real(name, root=root, final_mode=final_mode))
+        s["val"] = None if s["val"] is None else s["val"][:64]
+        s["test"] = s["test"][:64]
+        return s
+
+    monkeypatch.setattr(data, "get_dataset", get_dataset)
+
+
+EVAL = ["--max-iters", "4", "--log-interval", "2", "--eval-iws-interval", "2",
+        "--ckpt-interval", "2", "--eval-batch-size", "16"]
+
+
+def _log(path, prefix):
+    with open(os.path.join(path, "log.txt")) as f:
+        return [ln for ln in f if ln.startswith(prefix)]
+
+
+def _iws(lines):
+    return [float(re.search(r"logprob \(iws\) (\S+)", ln).group(1)) for ln in lines]
+
+
+@pytest.mark.parametrize("base,iws", [(BASE, "16"), (IMPLICIT_CONV, "64")],
+                         ids=["flagship", "implicit-conv"])
+def test_eval_and_checkpoints_on_cpu(tmp_path, small_splits, base, iws):
+    """Val evals at iters 2 and 4, best-checkpoint and checkpoint, then the
+    test eval from best-checkpoint."""
+    args = [a for a in _args(tmp_path, *EVAL, "--iws-samples", iws, base=base)
+            if a != "--skip-final-test-eval"]
+    state, path = ivae_ardae.run(args)
+    val, test = _log(path, "| val"), _log(path, "| test")
+    assert [ln.split("|")[2].strip() for ln in val] == ["iter 2", "iter 4"]
+    assert len(test) == 1
+    v2, v4 = _iws(val)
+    assert all(math.isfinite(v) and v < 0 for v in (v2, v4, *_iws(test)))
+    # the test eval ran on best-checkpoint's state
+    assert state.step == (4 if v4 > v2 else 2)
+    assert {"checkpoint", "best-checkpoint"} <= set(os.listdir(path))
+
+
+def test_resume_starts_at_the_saved_iteration(tmp_path):
+    state, path = ivae_ardae.run(_args(tmp_path, "--max-iters", "4",
+                                       "--log-interval", "2", "--ckpt-interval", "2"))
+    state, path2 = ivae_ardae.run(_args(tmp_path, "--max-iters", "6",
+                                        "--log-interval", "2", "--resume"))
+    assert path2 == path and state.step == 6
+    iters = [ln.split("|")[1].strip() for ln in _log(path, "| iter ")]
+    assert iters == ["iter 2", "iter 4", "iter 6"]
+    assert _log(path, "| resumed from checkpoint at iter 4")
+
+
+def test_final_mode_trains_to_the_best_iteration(tmp_path, small_splits):
+    """--train-mode final reads end_iter from best-checkpoint, trains that
+    many steps on train+val (60,000 rows: 15,000 steps an epoch at bs 4),
+    writes final-checkpoint and evaluates the test split from it."""
+    from ardae_tpu_torch.io.checkpoint import load_end_iter
+
+    _, path = ivae_ardae.run(_args(tmp_path, *EVAL, "--iws-samples", "16"))
+    end_iter = load_end_iter(path, "best-checkpoint")
+    args = [a for a in _args(tmp_path, "--train-mode", "final", "--resume",
+                             "--iws-samples", "16", "--max-iters", "10")
+            if a != "--skip-final-test-eval"]
+    state, path2 = ivae_ardae.run(args)
+    assert path2 == path and state.step == end_iter
+    assert "final-checkpoint" in os.listdir(path)
+    assert end_iter in (1, 3)  # best at iter 2 or 4, less one
+    assert all("/15000 |" in ln for ln in _log(path, "| iter ")[-end_iter:])
+    assert _log(path, "End of training (final)")
+    assert len(_log(path, "| test")) == 1
+
+
+def test_sbmnist_flagship_two_steps_on_cpu(tmp_path):
+    args = _args(tmp_path)
+    args[args.index("dbmnist-val5k")] = "sbmnist"
+    state, path = ivae_ardae.run(args)
+    _check_two_steps(state, path)
+    assert _log(path, "dataset sbmnist: SYNTHETIC")
 
 
 def test_use_kernels_on_uncovered_cdae_raises(tmp_path):
