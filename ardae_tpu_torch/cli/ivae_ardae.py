@@ -1,14 +1,16 @@
 """AR-DAE implicit-VAE trainer CLI (JAX twin: ardae_tpu/cli/ivae_ardae.py).
 
-The whole reference flag surface parses (reference ivae_ardae.py:32-196).
-The port trains the flagship line (resconv-res / resconvct-res) and the
-implicit-conv line (mnist-conv, which takes ``--model-h-dim 0
---model-n-layers 0``), each with an mlp-res or mlp-grad cdae on the MNIST
-family and sbMNIST; ``--use-kernels`` sends phase A to the hand-written
-fused DSM kernel of the cdae's style. The whole pipeline runs: train, the
-val IWS eval every ``--eval-iws-interval`` steps with ``best-checkpoint``
-on improvement, ``checkpoint`` every ``--ckpt-interval`` steps, resume from
-it, ``--train-mode final`` (train+val up to the best checkpoint's
+The whole reference flag surface parses (reference ivae_ardae.py:32-196),
+and ``--model`` also takes resconv-res3 / resconv-res4, which the JAX
+registry builds. The port trains every resconv model (the five fc heads,
+centred or not; the flagship line is resconvct-res) and the implicit-conv
+line (mnist-conv, which takes ``--model-h-dim 0 --model-n-layers 0``), each
+with an mlp-res or mlp-grad cdae on the MNIST family and sbMNIST;
+``--use-kernels`` sends phase A to the hand-written fused DSM kernel of the
+cdae's style. The whole pipeline runs: train, the val IWS eval every
+``--eval-iws-interval`` steps with ``best-checkpoint`` on improvement,
+``checkpoint`` every ``--ckpt-interval`` steps, resume from it,
+``--train-mode final`` (train+val up to the best checkpoint's
 iteration, ``final-checkpoint``), and the test IWS eval from the best (or
 final) checkpoint. The eval draws come from a generator of their own,
 seeded from (``--seed``, iteration), never from the training generator, so
@@ -21,11 +23,8 @@ run needs a CUDA device and raises without one.
 """
 
 import argparse
-import math
 import sys
-import time
 
-import numpy as np
 import torch
 
 
@@ -38,7 +37,7 @@ def build_parser():
                    choices=["mlp-concat", "mnist-concat", "mnist-conv",
                             "resconv", "resconvct", "resconv-res", "resconvct-res",
                             "resconv-res2", "resconvct-res2", "resconvct-res3",
-                            "resconvct-res4",
+                            "resconv-res3", "resconv-res4", "resconvct-res4",
                             "auxmlp", "auxmnist", "auxconv",
                             "auxresconv", "auxresconvct", "auxresconv-clip",
                             "auxresconvct-clip"])
@@ -171,7 +170,6 @@ def derive_experiment(opt):
 
 
 _Q = "ROADMAP queue 1, "
-TEST_EVAL_TAG = 999_983  # the test eval's generator tag (JAX: fold_in(k_eval, 999_983))
 
 
 def _unsupported_flags(opt):
@@ -196,13 +194,6 @@ def _unsupported_flags(opt):
     return out
 
 
-def eval_generator(seed, tag, device):
-    """The generator of one eval, seeded from (seed, tag): the val eval at
-    iteration i takes tag i, the test eval TEST_EVAL_TAG."""
-    state = np.random.SeedSequence([seed, tag]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
-
-
 def main(argv=None):
     run(argv)
     return 0
@@ -213,20 +204,15 @@ def run(argv=None):
     opt = build_parser().parse_args(argv)
 
     from ardae_tpu_torch.cli.common import (
-        EndIterError,
         IndexStream,
-        chunk_until_boundary,
+        eval_generator,
         evaluate_iws_ivae,
-        resolve_experiment_path,
+        open_run,
+        run_pipeline,
+        select_device,
     )
     from ardae_tpu_torch.core.annealing import annealing_func
-    from ardae_tpu_torch.data import get_dataset
-    from ardae_tpu_torch.io.checkpoint import (
-        load_checkpoint,
-        load_end_iter,
-        save_checkpoint,
-    )
-    from ardae_tpu_torch.io.logging import logging, make_writer
+    from ardae_tpu_torch.io.logging import logging
     from ardae_tpu_torch.models.registry import (
         build_cdae,
         build_ivae_model,
@@ -239,60 +225,14 @@ def run(argv=None):
     missing = _unsupported_flags(opt)
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
-    if opt.no_cuda:
-        device = torch.device("cpu")
-    elif torch.cuda.is_available():
-        device = torch.device("cuda")
-        # the reference trains and evaluates in full fp32; cuDNN would run
-        # convolutions in TF32 by default, and the IWS covariance feeds a
-        # Cholesky
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    else:
-        raise RuntimeError("no CUDA device: pass --no-cuda to run on the CPU")
+    device = select_device(opt.no_cuda)
 
     for name in ("beta_annealing", "eta_annealing", "lmbd_annealing"):
         v = getattr(opt, name)
         if v is None or v < 1:
             setattr(opt, name, None)
-    opt.best_val_loss = None
-    final_mode = opt.train_mode == "final"
-    prefix = "final-" if final_mode else ""
-
-    # data first: the iteration count decides whether the run reaches the
-    # visualization cadence
-    splits = get_dataset(opt.dataset, root=opt.data_root, final_mode=final_mode)
-    info = splits["info"]
-    train_np = splits["train"]
-    n_train = train_np.shape[0]
-    bs = opt.train_batch_size
-    steps_per_epoch = n_train // bs
-    total_iters = opt.epochs * steps_per_epoch
-    if opt.max_iters is not None:
-        total_iters = min(total_iters, opt.max_iters)
-
-    if opt.cache is None:
-        opt.cache = "experiments"
-    if opt.experiment is None:
-        opt.experiment = derive_experiment(opt)
-    opt.path = resolve_experiment_path(opt.cache, opt.experiment, opt.resume)
-    end_iter = load_end_iter(opt.path, "best-checkpoint") if final_mode else None
-    reach = total_iters if end_iter is None else min(total_iters, end_iter)
-    if 0 < opt.vis_interval <= reach:
-        raise NotImplementedError(
-            f"not ported yet: visualization (--vis-interval {opt.vis_interval}): "
-            f"{_Q}slice 6 item 14")
-    logging(str(opt), path=opt.path)
-    writer = make_writer(opt.path)
-    if info.get("synthetic"):
-        logging(f"dataset {opt.dataset}: SYNTHETIC surrogate (no real files "
-                f"under {opt.data_root})", path=opt.path)
-    else:
-        logging(f"dataset {opt.dataset}: real files from {opt.data_root}",
-                path=opt.path)
-    logging(f"device: {device}"
-            + (f" ({torch.cuda.get_device_name(device)})"
-               if device.type == "cuda" else ""), path=opt.path)
+    run_info = open_run(opt, derive_experiment, device)
+    splits = run_info[0]
 
     model = build_ivae_model(
         opt.model, nchannels=opt.nchannels, nheight=opt.nheight,
@@ -333,154 +273,44 @@ def run(argv=None):
 
     generator = torch.Generator(device=device).manual_seed(opt.seed)
 
-    # resume: state, training noise stream, i_ep and the best val bound
-    i_ep = 0
-    restored = load_checkpoint(state, opt.path, f"{prefix}checkpoint", generator)
-    if restored is not None:
-        meta = restored[1]
-        i_ep = int(meta["i_ep"])
-        best = float(meta["best_val_loss"])
-        opt.best_val_loss = None if best == -math.inf else best
-        logging(f"| resumed from {prefix}checkpoint at iter {i_ep}", path=opt.path)
-
+    train_np = splits["train"]
     data_dev = torch.as_tensor(train_np, device=device)
-    stream = IndexStream(n_train, bs, seed=opt.seed + 1)
-    binarize = bool(info.get("binarize", False))
+    stream = IndexStream(train_np.shape[0], opt.train_batch_size, seed=opt.seed + 1)
+    binarize = bool(splits["info"].get("binarize", False))
 
-    def ckpt_meta():
-        return {
-            "i_ep": i_ep,
-            "epoch": i_ep // steps_per_epoch + 1,
-            "batch_idx": i_ep % steps_per_epoch,
-            "train_num_iters_per_epoch": steps_per_epoch,
-            "best_val_loss": (opt.best_val_loss if opt.best_val_loss is not None
-                              else -math.inf),
-        }
-
-    def save(flavor):
-        t0 = time.time()
-        save_checkpoint(state, ckpt_meta(), opt.path, flavor, generator)
-        logging(f"| saved {flavor} at iter {i_ep} ({time.time() - t0:.2f} s)",
-                path=opt.path)
+    def train(k):
+        c_idx = stream.take(k * opt.num_cdae_updates).reshape(
+            k, opt.num_cdae_updates, opt.train_batch_size)
+        m_idx = stream.take(k)
+        return train_chunk(state, cfg, data_dev, c_idx, m_idx, generator,
+                           beta_fn, binarize=binarize)
 
     def evaluate(split, tag):
-        """(mean IWS bound, seconds) of a split."""
-        t0 = time.time()
         logprob = evaluate_iws_ivae(
             state.model, splits[split], opt.iws_samples,
             eval_generator(opt.seed, tag, device), binarize=binarize,
             batch=opt.eval_batch_size)
-        return logprob, time.time() - t0
+        return [("logprob (iws)", "logprob/iws", logprob)]
 
-    start_time = time.time()
-    try:
-        while i_ep < total_iters:
-            if final_mode and i_ep >= end_iter:
-                raise EndIterError
-            k = chunk_until_boundary(
-                i_ep, [opt.log_interval, opt.vis_interval,
-                       opt.eval_iws_interval, opt.ckpt_interval],
-                end_iter=end_iter)
-            k = min(k, total_iters - i_ep)
-            c_idx = stream.take(k * opt.num_cdae_updates).reshape(
-                k, opt.num_cdae_updates, bs)
-            m_idx = stream.take(k)
-            metrics = train_chunk(state, cfg, data_dev, c_idx, m_idx, generator,
-                                  beta_fn, binarize=binarize)
-            i_ep += k
-            epoch = (i_ep - 1) // steps_per_epoch + 1
-            batch_idx = (i_ep - 1) % steps_per_epoch + 1
-            if i_ep % opt.log_interval == 0:
-                m = {kk: float(v) for kk, v in metrics.items()}
-                if not all(np.isfinite(v) for v in m.values()):
-                    logging("| NaN/Inf training metrics at iter "
-                            f"{i_ep} — halting training early (best "
-                            "checkpoint preserved; the test eval reloads it): "
-                            + ", ".join(f"{kk}={vv}" for kk, vv in m.items()),
-                            path=opt.path)
-                    break
-                beta = float(beta_fn(i_ep - 1))
-                elapsed = time.time() - start_time
-                logging(
-                    "| iter {:d} | epoch {:3d} | {:5d}/{:5d} | ms/step {:5.2f} "
-                    "| dlr {:.5f} | (eff) std {:5.3f} | (true) std {:5.3f} "
-                    "| (eff) max std {:5.3f} | (eff) min std {:5.3f} "
-                    "| beta {:5.3f} | loss (vae) {:5.3f} | loss (recon) {:5.3f} "
-                    "| loss (prior) {:5.3f} | loss (cdae) {:5.4f} ".format(
-                        i_ep, epoch, batch_idx, steps_per_epoch,
-                        elapsed * 1000 / opt.log_interval, opt.d_lr,
-                        m["std_eff_mean"], m["std_eff_mean"] / opt.std_scale,
-                        m["std_eff_max"], m["std_eff_min"], beta,
-                        m["model_loss"], m["recon_loss"], m["prior_loss"],
-                        m["cdae_loss"]),
-                    path=opt.path)
-                mode = opt.train_mode
-                writer.add_scalar(f"{mode}/model/loss/step", m["model_loss"], i_ep)
-                writer.add_scalar(f"{mode}/model/recon/step", m["recon_loss"], i_ep)
-                writer.add_scalar(f"{mode}/model/prior/step", m["prior_loss"], i_ep)
-                writer.add_scalar(f"{mode}/model/beta/step", beta, i_ep)
-                writer.add_scalar(f"{mode}/cdae/loss/step", m["cdae_loss"], i_ep)
-                writer.add_scalar(f"{mode}/cdae/std/eff/mean/step",
-                                  m["std_eff_mean"], i_ep)
-                writer.add_scalar(f"{mode}/cdae/std/true/mean/step",
-                                  m["std_eff_mean"] / opt.std_scale, i_ep)
-                writer.add_scalar(f"{mode}/cdae/std/eff/max/step",
-                                  m["std_eff_max"], i_ep)
-                writer.add_scalar(f"{mode}/cdae/std/eff/min/step",
-                                  m["std_eff_min"], i_ep)
-                writer.add_scalar(f"{mode}/cdae/lr/step", opt.d_lr, i_ep)
-                start_time = time.time()
+    def log_train(i_ep, m):
+        beta = float(beta_fn(i_ep - 1))
+        std_true = m["std_eff_mean"] / opt.std_scale
+        tail = ("| dlr {:.5f} | (eff) std {:5.3f} | (true) std {:5.3f} "
+                "| (eff) max std {:5.3f} | (eff) min std {:5.3f} "
+                "| beta {:5.3f} | loss (vae) {:5.3f} | loss (recon) {:5.3f} "
+                "| loss (prior) {:5.3f} | loss (cdae) {:5.4f} ".format(
+                    opt.d_lr, m["std_eff_mean"], std_true, m["std_eff_max"],
+                    m["std_eff_min"], beta, m["model_loss"], m["recon_loss"],
+                    m["prior_loss"], m["cdae_loss"]))
+        return tail, {
+            "model/loss": m["model_loss"], "model/recon": m["recon_loss"],
+            "model/prior": m["prior_loss"], "model/beta": beta,
+            "cdae/loss": m["cdae_loss"], "cdae/std/eff/mean": m["std_eff_mean"],
+            "cdae/std/true/mean": std_true, "cdae/std/eff/max": m["std_eff_max"],
+            "cdae/std/eff/min": m["std_eff_min"], "cdae/lr": opt.d_lr}
 
-            t_side = time.time()
-            if (not final_mode and opt.eval_iws_interval > 0
-                    and i_ep % opt.eval_iws_interval == 0):
-                logprob, secs = evaluate("val", i_ep)
-                writer.add_scalar("val/logprob/iws/step", logprob, i_ep)
-                logging("-" * 89, path=opt.path)
-                logging("| val       | iter {:d} | epoch {:3d} | {:5d}/{:5d} "
-                        "| sec/step {:5.2f} | logprob (iws) {:.4f} ".format(
-                            i_ep, epoch, batch_idx, steps_per_epoch, secs,
-                            logprob), path=opt.path)
-                logging("-" * 89, path=opt.path)
-                if opt.best_val_loss is None or logprob > opt.best_val_loss:
-                    opt.best_val_loss = logprob
-                    save("best-checkpoint")
-            if opt.ckpt_interval > 0 and i_ep % opt.ckpt_interval == 0:
-                save(f"{prefix}checkpoint")
-            # eval and checkpoint time stays out of the next ms/step
-            start_time += time.time() - t_side
-
-    except KeyboardInterrupt:
-        logging("-" * 89, path=opt.path)
-        logging("Exiting from training early", path=opt.path)
-        logging("-" * 89, path=opt.path)
-        writer.close()
-        return state, opt.path
-    except EndIterError:
-        save(f"{prefix}checkpoint")
-        writer.flush()
-        logging("-" * 89, path=opt.path)
-        logging("End of training (final)", path=opt.path)
-        logging("-" * 89, path=opt.path)
-
-    if opt.skip_final_test_eval:
-        logging("| skipping final test eval (--skip-final-test-eval)",
-                path=opt.path)
-    else:
-        flavor = f"{prefix}checkpoint" if final_mode else "best-checkpoint"
-        if load_checkpoint(state, opt.path, flavor) is None:
-            # e.g. a NaN halt before the first eval: no best checkpoint was
-            # written, so the number below is the live state's
-            logging(f"| warning: no {flavor} on disk — evaluating the live "
-                    "train state instead", path=opt.path)
-        logprob, secs = evaluate("test", TEST_EVAL_TAG)
-        writer.add_scalar("test/logprob/iws/step", logprob, 0)
-        logging("-" * 89, path=opt.path)
-        logging("| test       | sec/step {:5.2f} | logprob (iws) {:.4f} ".format(
-            secs, logprob), path=opt.path)
-        logging("-" * 89, path=opt.path)
-    writer.close()
-    return state, opt.path
+    return run_pipeline(opt, state, generator, run_info, train, evaluate,
+                        log_train)
 
 
 if __name__ == "__main__":

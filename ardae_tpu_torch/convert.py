@@ -14,7 +14,8 @@ or without the top ``"params"`` level) into the port module's
     convolution is that same flipped correlation);
   * the two NHWC reshapes of each conv stack become NCHW: the layer after
     the trunk takes the (32, s, s) features in NCHW order (columns
-    permuted: the resconv trunk's fc, the conv IVAE's fc4_inp) and the
+    permuted: the resconv trunk's fc, the conv IVAE's fc4_inp, the conv
+    baseline's enc_fc) and the
     decoder layer before the first conv emits them in NCHW order (rows,
     scales and biases permuted: the resconv decoder's fc1, the conv
     decoder's fc.fc).
@@ -39,7 +40,7 @@ def _perm_rules(module):
     """{torch key prefix: ('in' | 'out', perm)} for the NHWC sites of the
     resconv and conv stacks."""
     from ardae_tpu_torch.models.ivae.conv import ConvIPVAE
-    from ardae_tpu_torch.models.vae.conv import ConvDecoder
+    from ardae_tpu_torch.models.vae.conv import ConvDecoder, MNISTConvVAE
     from ardae_tpu_torch.models.vae.resconv import ResConvDecoder, ResConvTrunk
 
     perm = _nhwc_to_nchw_perm(32, 4, 4)
@@ -52,9 +53,10 @@ def _perm_rules(module):
         elif isinstance(m, ResConvDecoder):
             rules[f"{pre}fc1.dot_h1."] = ("out", perm)
             rules[f"{pre}fc1.dot_01."] = ("out", perm)
-        elif isinstance(m, ConvIPVAE):
+        elif isinstance(m, (ConvIPVAE, MNISTConvVAE)):
             s = m.trunk.s
-            rules[f"{pre}fc4_inp."] = ("in", _nhwc_to_nchw_perm(32, s, s))
+            site = "fc4_inp" if isinstance(m, ConvIPVAE) else "enc_fc"
+            rules[f"{pre}{site}."] = ("in", _nhwc_to_nchw_perm(32, s, s))
         elif isinstance(m, ConvDecoder):
             rules[f"{pre}fc.fc."] = ("out", _nhwc_to_nchw_perm(32, m.s, m.s))
     return rules

@@ -1,10 +1,16 @@
-"""ELBO building blocks of the flagship slice (JAX twin: ardae_tpu/core/losses.py).
+"""ELBO building blocks (JAX twin: ardae_tpu/core/losses.py).
 
 ``reduce='sum'`` sums every element, ``reduce='per_item'`` sums all non-batch
-axes (axis 0 is the batch), ``reduce='none'`` returns the elements.
+axes (axis 0 is the batch), ``reduce='none'`` returns the elements. The
+Gaussian-vs-Gaussian KLD and the entropy term wait for the aux slice
+(ROADMAP queue 1, slice 5).
 """
 
+import math
+
 import torch
+
+_LOG_2PI = math.log(2.0 * math.pi)
 
 
 def _reduce(elem: torch.Tensor, reduce: str) -> torch.Tensor:
@@ -33,6 +39,20 @@ def loss_recon_bernoulli_with_logit(logit, x, reduce: str = "per_item"):
     neg_ll = (torch.clamp(logit, min=0.0) - logit * x
               + torch.log1p(torch.exp(-torch.abs(logit))))
     return _reduce(neg_ll, reduce)
+
+
+def loss_recon_gaussian(mu, logvar, x, const=None, reduce: str = "per_item"):
+    """Gaussian negative log-likelihood (reference utils/vae.py:36-52)."""
+    elem = logvar + (x - mu) ** 2 / torch.exp(logvar) + _LOG_2PI
+    if const is not None:
+        elem = elem + const
+    return 0.5 * _reduce(elem, reduce)
+
+
+def loss_kld_gaussian(mu, logvar, reduce: str = "per_item"):
+    """KL( N(mu, e^logvar) || N(0, I) ) (reference utils/vae.py:78-92)."""
+    elem = 1.0 + logvar - mu ** 2 - torch.exp(logvar)
+    return -0.5 * _reduce(elem, reduce)
 
 
 def iwae_bound(logw, dim: int = -1, eps: float = 1e-10):

@@ -4,8 +4,9 @@ reference utils/msc.py:67-110).
 One ``torch.save`` file per name (``checkpoint``, ``best-checkpoint``,
 ``final-checkpoint``) holds a dict of tensors and Python scalars only, so
 ``torch.load(weights_only=True)`` reads it on the card or on the CPU:
-``TrainState.state_dict()`` (both modules, both optimizers, the step), the
-training generator's state, and the meta (``i_ep``, ``epoch``,
+``TrainState.state_dict()`` (the model and its optimizer, the cdae and its
+optimizer where the state has them, the step), the training generator's
+state, and the meta (``i_ep``, ``epoch``,
 ``batch_idx``, ``train_num_iters_per_epoch``, ``best_val_loss`` with -inf
 for none). The generator state makes a resumed run continue the same noise
 stream. The host-side data-shuffle position restarts on resume, as the

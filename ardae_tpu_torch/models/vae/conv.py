@@ -10,7 +10,12 @@ The JAX twin flattens the trunk's NHWC output and reshapes the decoder MLP's
 output to NHWC; here both are plain NCHW flattens/reshapes, and
 ``convert.py`` permutes the columns of the layer after the trunk and the
 rows of the decoder MLP's last layer so the two packages compute the same
-function. The conv baseline's m5bias option belongs to the baseline driver.
+function.
+
+``MNISTConvVAE`` is the conv baseline: trunk -> ``enc_fc`` (800) -> act ->
+Normal head, and the deconv decoder (reference models/vae/conv.py:138-295).
+The JAX twin's ``do_xavier`` / ``do_m5bias`` options are not ported: every
+registry passes False for both.
 """
 
 import torch.nn as nn
@@ -18,6 +23,8 @@ import torch.nn.functional as F
 
 from ardae_tpu_torch.nn.activations import get_nonlinear_func
 from ardae_tpu_torch.nn.conv import Conv2d, ConvTranspose2d, conv_out_size
+from ardae_tpu_torch.nn.heads import NormalHead
+from ardae_tpu_torch.nn.linear import Linear
 from ardae_tpu_torch.nn.mlp import MLP
 
 
@@ -81,3 +88,27 @@ class ConvDecoder(nn.Module):
         h = a(self.deconv2(h))
         logit = self.reparam_logit(h)[..., :-1, :-1]  # ZeroPad2d((0, -1, 0, -1))
         return (logit.reshape(bsz, -1),)
+
+
+class MNISTConvVAE(nn.Module):
+    """The conv baseline (reference models/vae/conv.py:138-295)."""
+
+    family = "gaussian_posterior"
+    likelihood = "bernoulli"
+    center_input = True
+
+    def __init__(self, input_height=28, input_channels=1, z_dim=32,
+                 nonlinearity="softplus"):
+        super().__init__()
+        self.z_dim = z_dim
+        self.afun = get_nonlinear_func(nonlinearity)
+        self.trunk = ConvEncoderTrunk(input_height, input_channels, nonlinearity)
+        self.enc_fc = Linear(32 * self.trunk.s ** 2, 800)
+        self.enc_reparam = NormalHead(800, z_dim)
+        self.decode = ConvDecoder(z_dim, input_height, input_channels, nonlinearity)
+
+    def encode_params(self, x):
+        return self.enc_reparam(self.afun(self.enc_fc(self.trunk(x))))
+
+    def decode_params(self, z_flat):
+        return self.decode(z_flat)

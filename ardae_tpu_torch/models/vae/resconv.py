@@ -5,6 +5,9 @@ The JAX twin flattens NHWC before the trunk's fc and reshapes the decoder's
 fc1 output to (4, 4, 32) NHWC. Here both are plain NCHW flattens/reshapes;
 ``convert.py`` permutes the rows of those two fc layers' weights so the two
 packages compute the same function.
+
+``MNISTResConvVAE`` is the resconv baseline: trunk (c_dim 450) -> Normal
+head, and the decoder (reference models/vae/resconv.py:142-240).
 """
 
 import torch.nn as nn
@@ -15,6 +18,7 @@ from ardae_tpu_torch.nn.conv import (
     ResLinear2,
     upsample_bilinear_align_corners,
 )
+from ardae_tpu_torch.nn.heads import NormalHead
 
 
 class ResConvTrunk(nn.Module):
@@ -78,3 +82,29 @@ class ResConvDecoder(nn.Module):
         if self.do_m5bias:
             logit = logit - 3.0
         return (logit.reshape(bsz, -1),)
+
+
+class MNISTResConvVAE(nn.Module):
+    """resconv / resconvct baseline. ``do_center`` feeds the trunk 2x - 1;
+    the registry sets it for ``resconvct`` only (the reference driver passes
+    False for both, vae.py:233-249)."""
+
+    family = "gaussian_posterior"
+    likelihood = "bernoulli"
+    center_input = True
+
+    def __init__(self, input_height=28, input_channels=1, z_dim=32, c_dim=450,
+                 nonlinearity="elu", do_center=False):
+        super().__init__()
+        if input_height != 28 or input_channels != 1:
+            raise ValueError("MNISTResConvVAE takes 28x28x1 images")
+        self.z_dim = z_dim
+        self.trunk = ResConvTrunk(c_dim, nonlinearity, do_center)
+        self.enc_reparam = NormalHead(c_dim, z_dim)
+        self.decode = ResConvDecoder(z_dim, c_dim, nonlinearity)
+
+    def encode_params(self, x):
+        return self.enc_reparam(self.trunk(x))
+
+    def decode_params(self, z_flat):
+        return self.decode(z_flat)

@@ -36,6 +36,13 @@ Phases (each failure exits non-zero):
      update and the other kernel never, that every logged loss is finite,
      that the parameters moved, and that the trained encoder gives finite
      latents of the expected shape;
+  5c. drives the flagship line's flags with --model changed to each of the
+     other four resconv fc heads (resconv: mlp; resconvct-res2: res-mlp;
+     resconv-res3: res-wn-mlp-lin; resconvct-res4: res-mlp-lin), 4 steps
+     each with --use-kernels (the second log interval is past the
+     warm-up); each run starts with every launch counter at 0 and checks 2
+     fwd + 2 bwd res launches a step and no grad launch, finite losses and
+     moved parameters;
   6. drives the flagship pipeline through cli.ivae_ardae with the line's
      flags plus --use-kernels, evals and checkpoints every 2 steps, IWS-256
      at eval batch 128, in one experiment directory: a 4-step run (val
@@ -54,6 +61,20 @@ Phases (each failure exits non-zero):
      same functions on the CPU (the trained flagship model, 16 val items,
      the same injected draws, TF32 off): per item |card - CPU| <= 1e-3
      nats.
+  7. drives the baseline (Gaussian-posterior) VAE driver, cli.vae, which
+     runs no kernel: the resconv line's flags (scripts/run_vae_dbmnist.sh:16
+     plus --vis-interval 0) in one experiment directory, a 4-step run with
+     val evals at iters 2 and 4 over the whole 5k val split (IWAE-256 at
+     eval batch 128), best-checkpoint, checkpoint and the test eval over
+     10k, a resume to iter 6 that must log only iter 6, and a --train-mode
+     final run that writes final-checkpoint; then 6 steps each of the conv
+     (:22) and mlp (:28) lines with no eval. Every run starts with the
+     launch counters at 0 and must leave them there; each prints its
+     ms/step, each eval its seconds and items/s. It times a save and a load
+     of the trained state (card and CPU, bit for bit) and holds
+     logprob_iwae and vae_loss(reduce="per_item") on the card against the
+     same functions on the CPU (the trained resconv model, 16 val items,
+     the same injected draws): per item |card - CPU| <= 1e-3 nats.
 Then it prints the kernels' JSON line (each kernel's launches on the main
 path, error, times, FLOP, launches per step, and its bound: the larger of
 3 x FLOP over the 495 TFLOP/s TF32 tensor-core peak, the kernel's products
@@ -109,10 +130,42 @@ IMPLICIT_CONV_ARGS = [
     "--m-weight-avg-start", "-1", "--m-weight-avg-decay", "0.998",
     "--vis-interval", "50000", "--train-mode", "train",
 ]
-SMOKE_ARGS = ["--use-kernels", "--max-iters", "6", "--log-interval", "2",
-              "--eval-iws-interval", "0", "--ckpt-interval", "0",
-              "--skip-final-test-eval", "--no-resume"]
-STEPS = 6
+SMOKE_ARGS = ["--log-interval", "2", "--eval-iws-interval", "0",
+              "--ckpt-interval", "0", "--skip-final-test-eval", "--no-resume"]
+STEPS, HEAD_STEPS = 6, 4
+# phase 5c: the other four resconv fc heads on the flagship line's flags
+HEADS = {"resconv": "mlp", "resconvct-res2": "res-mlp",
+         "resconv-res3": "res-wn-mlp-lin", "resconvct-res4": "res-mlp-lin"}
+# phase 7: the baseline lines of scripts/run_vae_dbmnist.sh (:16, :22, :28)
+_BASELINE = [
+    "--dataset", "dbmnist-val5k", "--nheight", "28", "--nchannels", "1",
+    "--train-batch-size", "128", "--eval-batch-size", "32",
+    "--model-z-dim", "32", "--model-n-dim", "0", "--model-clip-logvar", "none",
+    "--exp-num", "1", "--lr", "0.0001", "--beta-fin", "1.0",
+    "--beta-annealing", "0", "--eval-iws-interval", "5000", "--iws-samples", "256",
+    "--weight-avg", "none", "--weight-avg-start", "-1",
+    "--weight-avg-decay", "0.998", "--log-interval", "100",
+    "--vis-interval", "10000", "--ckpt-interval", "5000", "--train-mode", "train",
+    "--vis-interval", "0"]
+BASELINE_LINES = {
+    "resconv": _BASELINE + [
+        "--optimizer", "adam", "--momentum", "0.9", "--beta1", "0.9",
+        "--model", "resconv", "--model-h-dim", "0", "--model-n-layers", "0",
+        "--model-nonlin", "elu", "--beta-init", "0.0001", "--epochs", "6400"],
+    "conv": _BASELINE + [
+        "--optimizer", "adam", "--momentum", "0.5", "--beta1", "0.5",
+        "--model", "conv", "--model-h-dim", "0", "--model-n-layers", "0",
+        "--model-nonlin", "softplus", "--beta-init", "1.0", "--epochs", "4700"],
+    "mlp": _BASELINE + [
+        "--optimizer", "adam", "--momentum", "0.5", "--beta1", "0.5",
+        "--model", "mnist", "--model-h-dim", "300", "--model-n-layers", "2",
+        "--model-nonlin", "softplus", "--beta-init", "1.0", "--epochs", "4700"],
+}
+BASELINE_MODELS = {  # build_vae_model arguments of each line
+    "resconv": dict(name="resconv", z_dim=32, nonlin="elu"),
+    "conv": dict(name="conv", z_dim=32, nonlin="softplus"),
+    "mlp": dict(name="mnist", z_dim=32, h_dim=300, n_layers=2, nonlin="softplus"),
+}
 PIPELINE_ARGS = ["--use-kernels", "--log-interval", "2", "--eval-iws-interval", "2",
                  "--ckpt-interval", "2", "--eval-batch-size", "128"]
 IWS_ATOL = 1e-3   # nats, per item, card against CPU
@@ -351,35 +404,44 @@ def time_kernel(torch, k, args, what, card):
     return med
 
 
+def reset_counts(kernels):
+    for k in kernels:
+        for name in k["fn"].launches:
+            k["fn"].launches[name] = 0
+
+
+def read_counts(kernels):
+    return {n: c for k in kernels for n, c in k["fn"].launches.items()}
+
+
 def drive_line(torch, dev, k, line_args, model, build_ivae_model, build_cdae,
-               kernels, what, card):
-    """Phase 5/5b: STEPS steps of a line through cli.ivae_ardae.run with
-    --use-kernels; every launch counter is 0 just before and read just
+               kernels, what, card, steps=STEPS, data_root=None):
+    """Phase 5/5b/5c: ``steps`` steps of a line through cli.ivae_ardae.run
+    with --use-kernels; every launch counter is 0 just before and read just
     after. Returns this kernel's launches."""
     from ardae_tpu_torch.cli import ivae_ardae
     from ardae_tpu_torch.models.ivae import api as ivae_api
 
     with tempfile.TemporaryDirectory() as tmp:
         argv = line_args + SMOKE_ARGS + [
+            "--use-kernels", "--max-iters", str(steps),
             "--cache", os.path.join(tmp, "exp"),
-            "--data-root", os.path.join(tmp, "data")]
-        for other in kernels:
-            for name in other["fn"].launches:
-                other["fn"].launches[name] = 0
+            "--data-root", data_root or os.path.join(tmp, "data")]
+        reset_counts(kernels)
         t0 = time.perf_counter()
         state, path = ivae_ardae.run(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {n: c for other in kernels
-                    for n, c in other["fn"].launches.items()}
+        launches = read_counts(kernels)
         with open(os.path.join(path, "log.txt")) as f:
             lines = [ln for ln in f if ln.startswith("| iter ")]
-    expected = {n: (STEPS * k["updates"] if n in k["fn"].launches else 0)
+    expected = {n: (steps * k["updates"] if n in k["fn"].launches else 0)
                 for n in launches}
     if launches != expected:
-        fail(f"{k['line_name']} line: kernel launches {launches}, expected {expected}")
-    if len(lines) != STEPS // 2:
-        fail(f"expected {STEPS // 2} log lines, got {len(lines)}")
+        fail(f"{what} {model['name']}: kernel launches {launches}, expected "
+             f"{expected}")
+    if len(lines) != steps // 2:
+        fail(f"expected {steps // 2} log lines, got {len(lines)}")
     losses = [float(v) for ln in lines for v in re.findall(
         r"loss \([a-z]+\) (\S+)", ln)]
     if not losses or not all(math.isfinite(v) for v in losses):
@@ -400,31 +462,32 @@ def drive_line(torch, dev, k, line_args, model, build_ivae_model, build_cdae,
         z = ivae_api.encode_det(state.model, x)
     if tuple(z.shape) != (8, 1, 32) or not bool(torch.isfinite(z).all()):
         fail(f"trained encoder output {tuple(z.shape)} not finite/(8, 1, 32)")
-    print(f"{what} main path: {STEPS} steps of the {k['line_name']} line with "
-          f"--use-kernels in {wall:.1f} s (set-up included); ms/step per log "
+    print(f"{what} main path: {steps} steps of the {k['line_name']} line "
+          f"({model['name']}) with --use-kernels in {wall:.1f} s (set-up "
+          f"included); ms/step per log "
           f"interval {ms_step}; steady {ms_step[-1]:.2f} ms/step = "
           f"{1000.0 / ms_step[-1]:.3f} steps/s; kernel launches {launches}; "
           f"losses finite | {card}", flush=True)
     return launches
 
 
-def pipeline_run(torch, kernels, path_log, argv, what):
-    """One driver run of phase 6 with every launch counter at 0 just
-    before; returns (state, path, launches, the run's new log lines)."""
-    from ardae_tpu_torch.cli import ivae_ardae
+def pipeline_run(torch, kernels, path_log, argv, what, driver=None):
+    """One driver run (cli.ivae_ardae unless ``driver`` is given) of phase
+    6 or 7 with every launch counter at 0 just before; returns (state,
+    path, launches, the run's new log lines)."""
+    if driver is None:
+        from ardae_tpu_torch.cli import ivae_ardae as driver
 
     before = 0
     if path_log and os.path.exists(path_log):
         with open(path_log) as f:
             before = len(f.readlines())
-    for k in kernels:
-        for name in k["fn"].launches:
-            k["fn"].launches[name] = 0
+    reset_counts(kernels)
     t0 = time.perf_counter()
-    state, path = ivae_ardae.run(argv)
+    state, path = driver.run(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {n: c for k in kernels for n, c in k["fn"].launches.items()}
+    launches = read_counts(kernels)
     with open(os.path.join(path, "log.txt")) as f:
         lines = f.readlines()[before:]
     print(f"{what}: driver run in {wall:.1f} s", flush=True)
@@ -432,10 +495,12 @@ def pipeline_run(torch, kernels, path_log, argv, what):
 
 
 def check_pipeline_run(k, launches, lines, steps, iters, n_evals, files, path,
-                       what):
-    """Phase 6's checks of one run: res launches 2 fwd + 2 bwd a step and
-    nothing else, the logged iterations, finite negative IWS, the files."""
-    expected = {n: (steps * k["updates"] if n in k["fn"].launches else 0)
+                       what, bound="IWS-256"):
+    """Phase 6's and 7's checks of one run: kernel ``k`` launched its
+    updates a step and nothing else did (no launch at all for k None), the
+    logged iterations, finite negative bounds, the files. Prints each
+    eval's seconds and items/s and the run's ms/step."""
+    expected = {n: (steps * k["updates"] if k and n in k["fn"].launches else 0)
                 for n in launches}
     if launches != expected:
         fail(f"{what}: kernel launches {launches}, expected {expected}")
@@ -455,8 +520,11 @@ def check_pipeline_run(k, launches, lines, steps, iters, n_evals, files, path,
         if not (math.isfinite(lp) and lp < 0):
             fail(f"{what}: {split} IWS {lp} is not finite and negative")
         items = 5000 if split == "val" else 10000
-        print(f"{what}: {split} IWS-256 {lp:.4f} over {items} items in "
+        print(f"{what}: {split} {bound} {lp:.4f} over {items} items in "
               f"{secs:.2f} s = {items / secs:.0f} items/s", flush=True)
+    ms_step = [float(re.search(r"ms/step\s+(\S+)", ln).group(1))
+               for ln in lines if ln.startswith("| iter ")]
+    print(f"{what}: ms/step per log interval {ms_step}", flush=True)
     missing = [f for f in files if not os.path.exists(os.path.join(path, f))]
     if missing:
         fail(f"{what}: missing checkpoint files {missing}")
@@ -472,6 +540,8 @@ def fresh_like(torch, state, device):
 
     parts = []
     for net, opt in ((state.model, state.opt_model), (state.cdae, state.opt_cdae)):
+        if net is None:
+            continue
         m = copy.deepcopy(net).to(device)
         with torch.no_grad():
             for p in m.parameters():
@@ -486,10 +556,11 @@ def state_tensors(state):
     sd = state.state_dict()
     out = {"step": sd["step"]}
     for part in ("model", "cdae"):
-        out.update({f"{part}.{k}": v for k, v in sd[part].items()})
+        out.update({f"{part}.{k}": v for k, v in sd.get(part, {}).items()})
     for part in ("opt_model", "opt_cdae"):
-        out.update({f"{part}.{i}.{n}": x for i, st in sd[part]["state"].items()
-                    for n, x in st.items()})
+        if part in sd:
+            out.update({f"{part}.{i}.{n}": x for i, st in sd[part]["state"].items()
+                        for n, x in st.items()})
     return out
 
 
@@ -615,7 +686,148 @@ def drive_pipeline(torch, res, kernels, card):
     torch.cuda.empty_cache()
 
 
+def drive_heads(torch, dev, res, kernels, build_ivae_model, build_cdae, card):
+    """Phase 5c: HEAD_STEPS steps of the flagship line's flags with --model
+    set to each of the four other resconv fc heads, one data directory
+    shared."""
+    def flag(name):
+        return FLAGSHIP_ARGS[FLAGSHIP_ARGS.index(name) + 1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, head in HEADS.items():
+            args = list(FLAGSHIP_ARGS)
+            args[args.index("resconvct-res")] = name
+            model = dict(name=name, nchannels=1, nheight=28,
+                         z_dim=int(flag("--model-z-dim")),
+                         h_dim=int(flag("--model-h-dim")),
+                         n_dim=int(flag("--model-n-dim")),
+                         n_layers=int(flag("--model-n-layers")),
+                         nonlin=flag("--model-nonlin"))
+            drive_line(torch, dev, res, args, model, build_ivae_model, build_cdae,
+                       kernels, f"phase 5c {head}", card, steps=HEAD_STEPS,
+                       data_root=os.path.join(tmp, "data"))
+            torch.cuda.empty_cache()
+
+
+def drive_baseline_line(torch, dev, kernels, line, tmp, card):
+    """Phase 7: STEPS steps of a baseline line through cli.vae with no eval;
+    no kernel may launch, the logged losses are finite and the parameters
+    move."""
+    from ardae_tpu_torch.cli import vae
+    from ardae_tpu_torch.models.registry import build_vae_model
+
+    what = f"phase 7 {line}"
+    argv = BASELINE_LINES[line] + SMOKE_ARGS + [
+        "--max-iters", str(STEPS), "--cache", os.path.join(tmp, "exp"),
+        "--data-root", os.path.join(tmp, "data")]
+    state, path, launches, lines = pipeline_run(torch, kernels, None, argv, what,
+                                                driver=vae)
+    check_pipeline_run(None, launches, lines, STEPS,
+                       [f"iter {i}" for i in range(2, STEPS + 1, 2)], 0, [], path,
+                       what)
+    values = [float(v) for ln in lines if ln.startswith("| iter ")
+              for v in re.findall(r"\| (?:loss(?: \(\w+\))?|elbo) (\S+)", ln)]
+    if len(values) != 4 * (STEPS // 2) or not all(math.isfinite(v) for v in values):
+        fail(f"{what}: logged losses {values} not all finite")
+    init = build_vae_model(**BASELINE_MODELS[line], seed=0, device=dev)
+    moved = sum(float((p.detach() - q.detach()).abs().max()) > 0
+                for p, q in zip(state.model.parameters(), init.parameters()))
+    total = len(list(init.parameters()))
+    print(f"{what}: {STEPS} steps, {moved}/{total} parameter tensors moved, no "
+          f"kernel launch, losses finite | {card}", flush=True)
+    if moved == 0:
+        fail(f"{what}: the parameters did not change")
+
+
+def iwae_card_vs_cpu(torch, state, data_root, what):
+    """logprob_iwae and vae_loss(reduce="per_item") on the card against the
+    CPU: the trained model copied, 16 binarized val items, the same draws."""
+    import copy
+
+    from ardae_tpu_torch.data import get_dataset
+    from ardae_tpu_torch.models.vae import api as vae_api
+
+    g = torch.Generator().manual_seed(17)
+    val = torch.as_tensor(get_dataset("dbmnist-val5k", root=data_root)["val"][:16])
+    x = (torch.rand(val.shape, generator=g) < val).float()
+    ssz, zdim = 256, state.model.z_dim
+    eps = torch.randn(16, ssz, zdim, generator=g)
+    elbo_eps = torch.randn(16, zdim, generator=g)
+    models = {"cuda": state.model, "cpu": copy.deepcopy(state.model).cpu()}
+    out = {}
+    with torch.no_grad():
+        for dev, m in models.items():
+            out[dev] = (
+                vae_api.logprob_iwae(m, x.to(dev), ssz, reduce="per_item",
+                                     eps=eps.to(dev)).cpu(),
+                vae_api.vae_loss(m, x.to(dev), reduce="per_item",
+                                 eps=elbo_eps.to(dev))[0].cpu())
+    for i, name in enumerate(("logprob_iwae", "vae_loss")):
+        card, cpu = out["cuda"][i], out["cpu"][i]
+        if not (bool(torch.isfinite(card).all()) and bool(torch.isfinite(cpu).all())):
+            fail(f"{what}: {name} is not finite")
+        diff = float((card - cpu).abs().max())
+        print(f"{what}: {name} card vs CPU at the resconv baseline, 16 items"
+              f"{', IWAE-256' if i == 0 else ''}: max per-item |diff| {diff:.2e} "
+              f"nats (bound {IWS_ATOL:.0e}); card mean {float(card.mean()):.4f}",
+              flush=True)
+        if not diff <= IWS_ATOL:
+            fail(f"{what}: {name} card and CPU differ by {diff:.2e} nats")
+
+
+def drive_baseline(torch, dev, kernels, card):
+    """Phase 7: the resconv baseline pipeline train -> val eval ->
+    best-checkpoint -> test eval -> resume -> final mode, the checkpoint
+    roundtrip, the IWAE card-vs-CPU check, then the conv and mlp lines."""
+    from ardae_tpu_torch.cli import vae
+    from ardae_tpu_torch.io.checkpoint import load_end_iter
+
+    what = "phase 7 resconv"
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        base = BASELINE_LINES["resconv"] + [
+            "--log-interval", "2", "--eval-iws-interval", "2", "--ckpt-interval",
+            "2", "--eval-batch-size", "128", "--cache", os.path.join(tmp, "exp"),
+            "--data-root", data]
+        t0 = time.perf_counter()
+        state, path, launches, lines = pipeline_run(
+            torch, kernels, None, base + ["--max-iters", "4", "--no-resume"],
+            f"{what} train", driver=vae)
+        check_pipeline_run(None, launches, lines, 4, ["iter 2", "iter 4"], 3,
+                           ["checkpoint", "best-checkpoint"], path, f"{what} train",
+                           "IWAE-256")
+        log = os.path.join(path, "log.txt")
+        state, path2, launches, lines = pipeline_run(
+            torch, kernels, log, base + ["--max-iters", "6", "--resume"],
+            f"{what} resume", driver=vae)
+        if path2 != path:
+            fail(f"{what} resume: went to {path2}, not {path}")
+        check_pipeline_run(None, launches, lines, 2, ["iter 6"], 2,
+                           ["checkpoint", "best-checkpoint"], path, f"{what} resume",
+                           "IWAE-256")
+        end_iter = load_end_iter(path, "best-checkpoint")
+        state, path3, launches, lines = pipeline_run(
+            torch, kernels, log, base + ["--train-mode", "final", "--resume"],
+            f"{what} final", driver=vae)
+        if path3 != path:
+            fail(f"{what} final: went to {path3}, not {path}")
+        check_pipeline_run(None, launches, lines, end_iter,
+                           [f"iter {i}" for i in range(2, end_iter + 1, 2)], 1,
+                           ["final-checkpoint"], path, f"{what} final", "IWAE-256")
+        print(f"{what}: train (4 steps), resume (to 6), final mode ({end_iter} "
+              f"steps on train+val) in {time.perf_counter() - t0:.1f} s, no kernel "
+              f"launch | {card}", flush=True)
+        checkpoint_roundtrip(torch, state, tmp, what)
+        iwae_card_vs_cpu(torch, state, data, what)
+        del state
+        torch.cuda.empty_cache()
+        for line in ("conv", "mlp"):
+            drive_baseline_line(torch, dev, kernels, line, tmp, card)
+    torch.cuda.empty_cache()
+
+
 def main():
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -700,7 +912,9 @@ def main():
             what, card).items() if n in k["fn"].launches})
         torch.cuda.empty_cache()
 
+    drive_heads(torch, dev, res, kernels, build_ivae_model, build_cdae, card)
     drive_pipeline(torch, res, kernels, card)
+    drive_baseline(torch, dev, kernels, card)
 
     def entry(name, k, source, replaces, which):
         m = med[k["cdae"]]
@@ -728,6 +942,8 @@ def main():
         entry("fused_dsm_grad_bwd", grad, "ardae_tpu_torch/csrc/fused_dsm_grad.cu",
               grad_sites, 1),
     ]
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels_line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ live file with malformed meta over a readable ``.tmp-save`` (where the JAX
 twin's rule let the temporary win, io/checkpoint.py:121), load_end_iter,
 and resume: 2 + 2 train_chunk steps with a save and a load into freshly
 built modules, optimizers and generator between them equal 4 uninterrupted
-steps bit for bit, for both ported lines at a tiny width."""
+steps bit for bit, for both ported implicit lines and for the baseline
+VAE, whose state has no cdae (its checkpoint leaves both out), at a tiny
+width."""
 
 import os
 
@@ -45,10 +47,11 @@ def _tensors(state):
     sd = state.state_dict()
     out = {"step": sd["step"]}
     for part in ("model", "cdae"):
-        out.update({f"{part}.{k}": v for k, v in sd[part].items()})
+        out.update({f"{part}.{k}": v for k, v in sd.get(part, {}).items()})
     for part in ("opt_model", "opt_cdae"):
-        out.update({f"{part}.{i}.{n}": x for i, st in sd[part]["state"].items()
-                    for n, x in st.items()})
+        if part in sd:
+            out.update({f"{part}.{i}.{n}": x for i, st in sd[part]["state"].items()
+                        for n, x in st.items()})
     return out
 
 
@@ -214,6 +217,44 @@ def test_resume_is_bitwise(tmp_path, line):
     assert meta["i_ep"] == 2 and resumed.step == 2
     steps(resumed, g_res, 2, 4)
 
+    assert resumed.step == full.step == 4
+    _assert_same(full, resumed)
+    assert torch.equal(g_res.get_state(), g_full.get_state())
+
+
+def _vae_state(seed):
+    from ardae_tpu_torch.models.registry import build_vae_model
+
+    model = build_vae_model("conv", z_dim=4, seed=seed, device="cpu")
+    return create_train_state(
+        model, build_optimizer("adam", model.parameters(), 1e-3, beta1=0.5))
+
+
+def test_baseline_vae_state_roundtrip_and_bitwise_resume(tmp_path):
+    """A state without a cdae: its checkpoint holds the model, its optimizer
+    and the step only; 2 + 2 chunk steps with a save and a load into a
+    fresh state between them equal 4 uninterrupted steps bit for bit."""
+    from ardae_tpu_torch.train.vae_step import VAEStepConfig, train_vae_chunk
+
+    cfg = VAEStepConfig(loss_scale=1.0 / 784)
+    data = torch.from_numpy(_synthetic_mnist(16, seed=3)[0])
+    idx = np.random.default_rng(4).integers(0, 16, (4, 4))
+
+    def steps(state, gen, lo, hi):
+        train_vae_chunk(state, cfg, data, idx[lo:hi], gen, lambda step: 1.0,
+                        binarize=True)
+
+    full, g_full = _vae_state(0), torch.Generator().manual_seed(1)
+    steps(full, g_full, 0, 4)
+    half, g_half = _vae_state(0), torch.Generator().manual_seed(1)
+    steps(half, g_half, 0, 2)
+    assert set(half.state_dict()) == {"step", "model", "opt_model"}
+    save_checkpoint(half, {**META, "i_ep": 2}, str(tmp_path), "checkpoint", g_half)
+    resumed, g_res = _vae_state(7), torch.Generator().manual_seed(99)
+    _, meta = load_checkpoint(resumed, str(tmp_path), "checkpoint", g_res)
+    assert meta["i_ep"] == 2 and resumed.step == 2 and resumed.cdae is None
+    _assert_same(half, resumed)
+    steps(resumed, g_res, 2, 4)
     assert resumed.step == full.step == 4
     _assert_same(full, resumed)
     assert torch.equal(g_res.get_state(), g_full.get_state())

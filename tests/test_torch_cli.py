@@ -1,6 +1,7 @@
 """The port's driver, ardae_tpu_torch.cli.ivae_ardae, on the CPU (--no-cuda):
 2-step runs of the flagship line and of the implicit-conv line at a tiny
-width on dbmnist-val5k and of the flagship on sbMNIST; the whole pipeline
+width on dbmnist-val5k, of the flagship on sbMNIST, and of the four other
+resconv fc heads with --use-kernels; the whole pipeline
 (val IWS eval, best and periodic checkpoints, the test eval from the best
 checkpoint, resume, final mode) on val and test splits cut to 64 items; and
 the flags and configs the port does not cover, which must raise."""
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from ardae_tpu_torch.cli import ivae_ardae
+from torch_driver_data import shared_datasets, small_splits  # noqa: F401
 
 BASE = ["--dataset", "dbmnist-val5k", "--nheight", "28", "--nchannels", "1",
         "--train-batch-size", "4", "--m-optimizer", "adam", "--m-beta1", "0.9",
@@ -76,6 +78,20 @@ def test_implicit_conv_line_two_steps_on_cpu(tmp_path):
     assert state.cdae.score_type == "grad" and state.cdae.h_dim == 16
 
 
+@pytest.mark.parametrize("model,head", [
+    ("resconv", "mlp"), ("resconvct-res2", "res-mlp"),
+    ("resconv-res3", "res-wn-mlp-lin"), ("resconvct-res4", "res-mlp-lin")])
+def test_resconv_heads_two_steps_on_cpu(tmp_path, model, head):
+    """The flagship line with --model changed: phase A takes the res-style
+    op, whose CPU dispatch is its plain version."""
+    args = _args(tmp_path, "--use-kernels")
+    args[args.index("resconvct-res")] = model
+    state, path = ivae_ardae.run(args)
+    _check_two_steps(state, path)
+    assert state.model.enc_type == head
+    assert state.model.trunk.do_center == ("ct" in model)
+
+
 @pytest.mark.parametrize("extra,what", [
     (["--vis-interval", "1"], "visualization"),
     (["--cdae-compute-dtype", "bfloat16"], "bf16"),
@@ -86,22 +102,6 @@ def test_implicit_conv_line_two_steps_on_cpu(tmp_path):
 def test_unsupported_flags_raise(tmp_path, extra, what):
     with pytest.raises(NotImplementedError, match=what):
         ivae_ardae.run(_args(tmp_path, *extra))
-
-
-@pytest.fixture
-def small_splits(monkeypatch):
-    """The driver's get_dataset with val and test cut to 64 items."""
-    import ardae_tpu_torch.data as data
-
-    real = data.get_dataset
-
-    def get_dataset(name, root="data", final_mode=False):
-        s = dict(real(name, root=root, final_mode=final_mode))
-        s["val"] = None if s["val"] is None else s["val"][:64]
-        s["test"] = s["test"][:64]
-        return s
-
-    monkeypatch.setattr(data, "get_dataset", get_dataset)
 
 
 EVAL = ["--max-iters", "4", "--log-interval", "2", "--eval-iws-interval", "2",

@@ -1,6 +1,7 @@
-"""The flax <-> torch parameter converter, one round trip per layer kind:
-flax params -> port state_dict (loaded strictly into the port module) ->
-flax params again, bit for bit."""
+"""The flax <-> torch parameter converter, one round trip per layer kind and
+model: flax params -> port state_dict (loaded strictly into the port module)
+-> flax params again, bit for bit; and the conv baseline's enc_fc, whose
+columns read the trunk's NHWC flatten in JAX."""
 
 import jax
 import numpy as np
@@ -10,6 +11,9 @@ from ardae_tpu.models.cdae import MLPGradCARDAE as JGrad
 from ardae_tpu.models.cdae import MLPResCARDAE as JRes
 from ardae_tpu.models.ivae.conv import ConvIPVAE as JConvIPVAE
 from ardae_tpu.models.ivae.resconv import ResConvIPVAE as JIPVAE
+from ardae_tpu.models.vae.conv import MNISTConvVAE as JConvVAE
+from ardae_tpu.models.vae.mnist import MNISTVAE as JMnistVAE
+from ardae_tpu.models.vae.resconv import MNISTResConvVAE as JResConvVAE
 from ardae_tpu.nn import conv as jconv
 from ardae_tpu.nn import linear as jlin
 from ardae_tpu.nn import mlp as jmlp
@@ -22,6 +26,9 @@ from ardae_tpu_torch.models.cdae.cardae import MLPGradCARDAE as TGrad
 from ardae_tpu_torch.models.cdae.cardae import MLPResCARDAE as TRes
 from ardae_tpu_torch.models.ivae.conv import ConvIPVAE as TConvIPVAE
 from ardae_tpu_torch.models.ivae.resconv import ResConvIPVAE as TIPVAE
+from ardae_tpu_torch.models.vae.conv import MNISTConvVAE as TConvVAE
+from ardae_tpu_torch.models.vae.mnist import MNISTVAE as TMnistVAE
+from ardae_tpu_torch.models.vae.resconv import MNISTResConvVAE as TResConvVAE
 from ardae_tpu_torch.nn import conv as tconv
 from ardae_tpu_torch.nn import linear as tlin
 from ardae_tpu_torch.nn import mlp as tmlp
@@ -60,7 +67,18 @@ CASES = {
         JIPVAE(z_dim=4, noise_dim=3, c_dim=512, h_dim=8, enc_type="res-wn-mlp"),
         TIPVAE(z_dim=4, noise_dim=3, c_dim=512, h_dim=8),
         (rand(0, 2, 784), rand(1, 2, 3))),
+    "mnist_vae": lambda: (JMnistVAE(h_dim=8, z_dim=4), TMnistVAE(h_dim=8, z_dim=4),
+                          (rand(0, 2, 784),)),
+    "conv_vae_nhwc": lambda: (JConvVAE(z_dim=4), TConvVAE(z_dim=4),
+                              (rand(0, 2, 784),)),
+    "resconv_vae_nhwc": lambda: (JResConvVAE(z_dim=4), TResConvVAE(z_dim=4),
+                                 (rand(0, 2, 784),)),
 }
+for _head in ("mlp", "res-mlp", "res-wn-mlp-lin", "res-mlp-lin"):
+    CASES[f"resconv_ipvae_{_head}"] = (
+        lambda h=_head: (JIPVAE(z_dim=4, noise_dim=3, h_dim=8, enc_type=h),
+                         TIPVAE(z_dim=4, noise_dim=3, h_dim=8, enc_type=h),
+                         (rand(0, 2, 784), rand(1, 2, 3))))
 
 
 @pytest.mark.parametrize("kind", sorted(CASES))
@@ -86,3 +104,19 @@ def test_nhwc_perm_maps_flatten_orders():
     nhwc = np.transpose(fmap, (1, 2, 0)).reshape(-1)
     perm = _nhwc_to_nchw_perm(32, 4, 4)
     np.testing.assert_array_equal(nhwc[perm], nchw)
+
+
+def test_conv_vae_enc_fc_reads_the_nchw_flatten():
+    """enc_fc's columns are permuted NHWC -> NCHW and nothing else is: the
+    port's enc_fc on the port trunk's NCHW features equals JAX's enc_fc on
+    the NHWC flatten of the same feature map."""
+    jm, tm = JConvVAE(z_dim=4), TConvVAE(z_dim=4)
+    p = init(jm, rand(0, 2, 784))
+    sd = flax_to_state_dict(p, tm)
+    kernel = np.asarray(p["params"]["enc_fc"]["kernel"])       # (512, 800)
+    fmap = rand(3, 32, 4, 4)
+    nchw, nhwc = fmap.reshape(-1), np.transpose(fmap, (1, 2, 0)).reshape(-1)
+    np.testing.assert_allclose(sd["enc_fc.weight"].numpy() @ nchw, nhwc @ kernel,
+                               rtol=1e-5, atol=1e-5)
+    assert np.array_equal(sd["enc_reparam.mean_fn.weight"].numpy(),
+                          np.asarray(p["params"]["enc_reparam"]["mean_fn"]["kernel"]).T)

@@ -1,6 +1,8 @@
 """The resconv implicit VAE of the flagship line, port against JAX, on real
 28x28 inputs (the MNIST surrogate), with the encoder noise drawn by
-jax.random and injected into the port. fp32; rtol 1e-4 / atol 1e-5: ten
+jax.random and injected into the port; and the four other fc heads (mlp,
+res-mlp, res-wn-mlp-lin, res-mlp-lin; h 32, one and two layers) through
+sample_z, encode_det and ivae_loss. fp32; rtol 1e-4 / atol 1e-5: ten
 conv layers and two bilinear upsamplings deep, XLA's and PyTorch's CPU
 convolutions sum in different orders."""
 
@@ -68,3 +70,47 @@ def test_ivae_loss_injected_eps(pair):
     close(got, want, RTOL, ATOL)
     for k in ("recon", "prior", "z"):
         close(terms[k], wterms[k], RTOL, ATOL, msg=k)
+
+
+HEADS = [("mlp", 1), ("res-mlp", 1), ("res-wn-mlp-lin", 1), ("res-mlp-lin", 1),
+         ("mlp", 2), ("res-wn-mlp-lin", 2)]
+
+
+@pytest.fixture(scope="module", params=HEADS, ids=[f"{h}-{n}" for h, n in HEADS])
+def head_pair(request):
+    enc_type, layers = request.param
+    x = _synthetic_mnist(3, seed=5)[0]
+    kw = dict(z_dim=Z, noise_dim=NOISE, h_dim=H, num_hidden_layers=layers,
+              nonlinearity="elu", do_center=layers == 2, enc_type=enc_type)
+    jm = JIPVAE(**kw)
+    p = init(jm, x, np.zeros((3, NOISE), np.float32))
+    return jm, p, loaded(TIPVAE(**kw), p), x
+
+
+def test_sample_z_of_each_head(head_pair):
+    jm, p, tm, x = head_pair
+    key = jax.random.PRNGKey(3)
+    want = japi.sample_latents(jm, p, key, x, 4)
+    got = tapi.sample_latents(tm, t(x), 4, eps=t(japi.make_eps(jm, key, 3, 4)))
+    assert got.shape == (3, 4, Z)
+    close(got, want, RTOL, ATOL)
+    close(tapi.encode_det(tm, t(x)), japi.encode_det(jm, p, x), RTOL, ATOL)
+
+
+def test_ivae_loss_of_each_head(head_pair):
+    jm, p, tm, x = head_pair
+    key = jax.random.PRNGKey(4)
+    want, wterms = japi.ivae_loss(jm, p, key, x, 2, beta=0.7)
+    got, terms = tapi.ivae_loss(tm, t(x), 2, beta=0.7,
+                                eps=t(japi.make_eps(jm, key, 3, 2)))
+    close(got, want, RTOL, ATOL)
+    close(terms["z"], wterms["z"], RTOL, ATOL)
+
+
+def test_lin_head_at_one_layer_is_one_res_block_then_a_linear():
+    """At --model-n-layers 1 fc_res has no hidden block: one ResLinear
+    (c+n -> h) with the output nonlinearity, then fc_lin (h -> z)."""
+    tm = TIPVAE(z_dim=Z, noise_dim=NOISE, h_dim=H, enc_type="res-mlp-lin")
+    assert len(tm.fc_res.layers) == 0 and tm.fc_res.use_nonlinearity_output
+    assert tm.fc_res.fc.dot_0h.weight.shape == (H, 512 + NOISE)
+    assert tm.fc_lin.weight.shape == (Z, H)
