@@ -1,8 +1,9 @@
 """Driver plumbing shared by both drivers (JAX twin:
 ardae_tpu/cli/common.py): the device, experiment naming and resume
 directory, the train / eval / checkpoint pipeline, the host index stream,
-chunk boundaries, the eval generators, the IWS evaluation of an implicit VAE
-and the IWAE evaluation of a baseline VAE over a split."""
+chunk boundaries, the eval generators, the IWS evaluation of an implicit VAE,
+the IWAE evaluation of a baseline VAE over a split, and the toy final
+dump."""
 
 import datetime
 import glob
@@ -18,6 +19,9 @@ from ardae_tpu_torch.io.checkpoint import load_checkpoint, load_end_iter
 from ardae_tpu_torch.io.logging import get_time, logging, make_writer
 
 TEST_EVAL_TAG = 999_983  # the test eval's generator tag (JAX: fold_in(k_eval, 999_983))
+DUMP_TAG = 999_979       # the toy final dump's (JAX: fold_in(k_eval, 999_979))
+DUMP_CHUNK = 131_072     # rows of the toy final dump a chunk
+TOY_DATASETS = ("swissroll", "25gaussians")
 
 
 def select_device(no_cuda):
@@ -54,7 +58,8 @@ def open_run(opt, derive_experiment, device):
     # data first: the iteration count decides whether the run reaches the
     # visualization cadence
     splits = data.get_dataset(opt.dataset, root=opt.data_root,
-                              final_mode=final_mode)
+                              final_mode=final_mode,
+                              toy_sizes=toy_sizes(opt.toy_train_size))
     steps_per_epoch = splits["train"].shape[0] // opt.train_batch_size
     total_iters = opt.epochs * steps_per_epoch
     if opt.max_iters is not None:
@@ -73,7 +78,11 @@ def open_run(opt, derive_experiment, device):
             "ROADMAP queue 1, slice 6 item 14")
     logging(str(opt), path=opt.path)
     writer = make_writer(opt.path)
-    if splits["info"].get("synthetic"):
+    if opt.dataset in TOY_DATASETS:
+        logging(f"dataset {opt.dataset}: generated from seed "
+                f"{data.toy.SEED}, cached under {opt.data_root}/toy",
+                path=opt.path)
+    elif splits["info"].get("synthetic"):
         logging(f"dataset {opt.dataset}: SYNTHETIC surrogate (no real files "
                 f"under {opt.data_root})", path=opt.path)
     else:
@@ -83,6 +92,16 @@ def open_run(opt, derive_experiment, device):
             + (f" ({torch.cuda.get_device_name(device)})"
                if device.type == "cuda" else ""), path=opt.path)
     return splits, steps_per_epoch, total_iters, end_iter, writer
+
+
+def toy_sizes(train_size):
+    """The toy splits for ``--toy-train-size`` (JAX cli/ivae_ardae.py:
+    257-263): None, the defaults, at 2,000,000; else test = max(n / 100,
+    1000) and val = max(n / 1000, 500)."""
+    if train_size == 2_000_000:
+        return None
+    return dict(train=train_size, test=max(train_size // 100, 1000),
+                val=max(train_size // 1000, 500))
 
 
 def resume_run(state, opt, flavor, generator):
@@ -99,7 +118,8 @@ def resume_run(state, opt, flavor, generator):
     return int(meta["i_ep"])
 
 
-def run_pipeline(opt, state, generator, run, train_chunk, evaluate, log_train):
+def run_pipeline(opt, state, generator, run, train_chunk, evaluate, log_train,
+                 final=None):
     """The pipeline both drivers share once their state is built: resume
     from ``checkpoint`` (``final-checkpoint`` in final mode), train in
     chunks that end at every cadence boundary, log, halt on a NaN/Inf
@@ -113,7 +133,9 @@ def run_pipeline(opt, state, generator, run, train_chunk, evaluate, log_train):
     and returns the last step's metrics. ``evaluate(split, tag)`` returns
     the split's bounds as [(label, scalar name, value)], the last of them
     the one that picks ``best-checkpoint``. ``log_train(i_ep, metrics)``
-    returns the train line's tail and its scalars {name: value}."""
+    returns the train line's tail and its scalars {name: value}.
+    ``final(writer)``, where given, takes the test eval's place (the toy
+    final dump), on the live state."""
     from ardae_tpu_torch.io.checkpoint import save_checkpoint
 
     splits, steps_per_epoch, total_iters, end_iter, writer = run
@@ -199,6 +221,8 @@ def run_pipeline(opt, state, generator, run, train_chunk, evaluate, log_train):
     if opt.skip_final_test_eval:
         logging("| skipping final test eval (--skip-final-test-eval)",
                 path=opt.path)
+    elif final is not None:
+        final(writer)
     else:
         flavor = f"{prefix}checkpoint" if final_mode else "best-checkpoint"
         if load_checkpoint(state, opt.path, flavor) is None:
@@ -256,7 +280,8 @@ class IndexStream:
         if n < batch_size:
             raise ValueError(
                 f"dataset size {n} < batch size {batch_size}: no full batch "
-                "exists under drop-remainder semantics")
+                "exists under drop-remainder semantics (reduce the batch "
+                "size or raise --toy-train-size)")
         self.n = n
         self.bs = batch_size
         self.per_epoch = n // batch_size
@@ -366,6 +391,56 @@ def _mean(sums, n):
     """The mean over n items of per-batch sums, added in float64."""
     total = float(torch.stack(sums).double().sum()) if sums else 0.0
     return total / max(n, 1)
+
+
+def toy_final_dump(opt, model, train_np, reconstruct, generate, writer):
+    """The toy runs' end (JAX cli/ivae_ardae.py:638-667, cli/vae.py:
+    473-499): the first min(1,000,000, n_train) training points in chunks
+    of DUMP_CHUNK rows (the last chunk is whole, as in JAX), each
+    reconstructed and as many points generated, without autograd, every
+    draw from the generator seeded from (``--seed``, DUMP_TAG). Writes the
+    data | recon | gen heatmaps (over [-6, 6]^2) and the ground-truth |
+    latent heatmaps (over [-4, 4]^2), 256 bins each, to the writer and to
+    ``toy-dump.npz`` in the experiment directory (the panels and the four
+    count grids), and logs the rows and how many values are not finite.
+    The JAX drivers draw the periodic visualization's panels first; those
+    wait with it (ROADMAP queue 1, slice 6 item 14). Returns the dumped
+    (data, recon, gen, latent) arrays."""
+    from ardae_tpu_torch.core.energy import normal_energy_func
+    from ardae_tpu_torch.utils import visualization as vis
+
+    t0 = time.time()
+    device = next(model.parameters()).device
+    gen = eval_generator(opt.seed, DUMP_TAG, device)
+    parts = {k: [] for k in ("data", "recon", "gen", "latent")}
+    with torch.no_grad():
+        for lo in range(0, min(1_000_000, len(train_np)), DUMP_CHUNK):
+            xs = torch.as_tensor(train_np[lo:lo + DUMP_CHUNK], device=device)
+            out, _, z = reconstruct(model, xs, generator=gen)
+            sample, _, _ = generate(model, xs.shape[0], generator=gen)
+            for k, v in (("data", xs), ("recon", out), ("gen", sample),
+                         ("latent", z)):
+                parts[k].append(v.cpu().numpy())
+    arrays = {k: np.concatenate(v) for k, v in parts.items()}
+    counts = {k: vis.histogram2d(v[:, :2], val=4 if k == "latent" else 6, num=256)
+              for k, v in arrays.items()}
+    drg = np.concatenate([vis.get_imshow_plot(counts[k])
+                          for k in ("data", "recon", "gen")], axis=1)
+    gt = vis.get_imshow_plot(
+        vis.get_prob_from_energy_func_for_vis(normal_energy_func, num=256))
+    lat = np.concatenate([gt, vis.get_imshow_plot(counts["latent"])], axis=1)
+    writer.add_image("test/data-recon-gen/heatmap",
+                     vis.convert_npimage_torchimage(drg), 0)
+    writer.add_image("test/latent/heatmap", vis.convert_npimage_torchimage(lat), 0)
+    np.savez_compressed(os.path.join(opt.path, "toy-dump.npz"),
+                        data_recon_gen=drg, gt_latent=lat,
+                        **{f"{k}_counts": v for k, v in counts.items()})
+    bad = sum(int((~np.isfinite(arrays[k])).sum()) for k in ("recon", "gen", "latent"))
+    logging("-" * 89, path=opt.path)
+    logging(f"| toy dump   | sec {time.time() - t0:5.2f} | rows "
+            f"{len(arrays['data'])} | non-finite {bad} ", path=opt.path)
+    logging("-" * 89, path=opt.path)
+    return arrays
 
 
 class EndIterError(Exception):

@@ -3,20 +3,23 @@
 The whole reference flag surface parses (reference ivae_ardae.py:32-196),
 and ``--model`` also takes resconv-res3 / resconv-res4, which the JAX
 registry builds. The port trains every resconv model (the five fc heads,
-centred or not; the flagship line is resconvct-res) and the implicit-conv
-line (mnist-conv, which takes ``--model-h-dim 0 --model-n-layers 0``), each
-with an mlp-res or mlp-grad cdae on the MNIST family and sbMNIST;
-``--use-kernels`` sends phase A to the hand-written fused DSM kernel of the
-cdae's style. The whole pipeline runs: train, the val IWS eval every
-``--eval-iws-interval`` steps with ``best-checkpoint`` on improvement,
-``checkpoint`` every ``--ckpt-interval`` steps, resume from it,
-``--train-mode final`` (train+val up to the best checkpoint's
+centred or not; the flagship line is resconvct-res), the implicit-conv
+line (mnist-conv, which takes ``--model-h-dim 0 --model-n-layers 0``) and
+mnist-concat, each with an mlp-res or mlp-grad cdae on the MNIST family and
+sbMNIST, and mlp-concat on the toy datasets (swissroll, 25gaussians; a
+Gaussian likelihood); ``--use-kernels`` sends phase A to the hand-written
+fused DSM kernel of the cdae's style. The whole pipeline runs: train, the
+val IWS eval every ``--eval-iws-interval`` steps with ``best-checkpoint``
+on improvement, ``checkpoint`` every ``--ckpt-interval`` steps, resume
+from it, ``--train-mode final`` (train+val up to the best checkpoint's
 iteration, ``final-checkpoint``), and the test IWS eval from the best (or
-final) checkpoint. The eval draws come from a generator of their own,
-seeded from (``--seed``, iteration), never from the training generator, so
-neither the eval cadence nor a resume shifts the training noise. Flags and
-cadences the port does not cover raise NotImplementedError naming their
-ROADMAP item whenever the run would use them; none is ignored in silence.
+final) checkpoint; a toy run ends in the toy final dump instead
+(``cli/common.py`` ``toy_final_dump``). The eval draws come from a
+generator of their own, seeded from (``--seed``, iteration), never from the
+training generator, so neither the eval cadence nor a resume shifts the
+training noise. Flags and cadences the port does not cover raise
+NotImplementedError naming their ROADMAP item whenever the run would use
+them; none is ignored in silence.
 
 Device: ``--no-cuda`` selects the CPU, as in the reference; otherwise the
 run needs a CUDA device and raises without one.
@@ -204,12 +207,14 @@ def run(argv=None):
     opt = build_parser().parse_args(argv)
 
     from ardae_tpu_torch.cli.common import (
+        TOY_DATASETS,
         IndexStream,
         eval_generator,
         evaluate_iws_ivae,
         open_run,
         run_pipeline,
         select_device,
+        toy_final_dump,
     )
     from ardae_tpu_torch.core.annealing import annealing_func
     from ardae_tpu_torch.io.logging import logging
@@ -309,8 +314,14 @@ def run(argv=None):
             "cdae/std/true/mean": std_true, "cdae/std/eff/max": m["std_eff_max"],
             "cdae/std/eff/min": m["std_eff_min"], "cdae/lr": opt.d_lr}
 
+    def final(writer):
+        from ardae_tpu_torch.models.ivae.api import generate, reconstruct
+
+        toy_final_dump(opt, state.model, train_np, reconstruct, generate, writer)
+
     return run_pipeline(opt, state, generator, run_info, train, evaluate,
-                        log_train)
+                        log_train,
+                        final if opt.dataset in TOY_DATASETS else None)
 
 
 if __name__ == "__main__":

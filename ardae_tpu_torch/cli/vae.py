@@ -4,16 +4,19 @@ ardae_tpu/cli/vae.py; reference vae.py).
 The whole flag surface parses (reference vae.py:28-127) and experiment
 names match the JAX driver's. The port trains the MNIST-family baselines
 ``mnist``, ``conv``, ``resconv`` and ``resconvct`` on the MNIST family and
-sbMNIST: one optimizer, the loss scaled by 1/(C*H*W) before the backward,
-beta annealing, and the whole pipeline: train, the val IWAE eval (exact q)
-every ``--eval-iws-interval`` steps with ``best-checkpoint`` on
-improvement, ``checkpoint`` every ``--ckpt-interval`` steps, resume from it,
-``--train-mode final`` (train+val up to the best checkpoint's iteration,
-``final-checkpoint``), and the test eval from the best (or final)
-checkpoint. The eval draws come from a generator of their own seeded from
-(``--seed``, iteration), never from the training generator. Flags and
-cadences the port does not cover raise NotImplementedError naming their
-ROADMAP item whenever the run would use them; none is ignored in silence.
+sbMNIST, and ``toy`` on the toy datasets (swissroll, 25gaussians; a
+Gaussian likelihood): one optimizer, the loss scaled by 1/(C*H*W) before
+the backward, beta annealing, and the whole pipeline: train, the val IWAE
+eval (exact q) every ``--eval-iws-interval`` steps with ``best-checkpoint``
+on improvement, ``checkpoint`` every ``--ckpt-interval`` steps, resume from
+it, ``--train-mode final`` (train+val up to the best checkpoint's
+iteration, ``final-checkpoint``), and the test eval from the best (or
+final) checkpoint; a toy run ends in the toy final dump instead
+(``cli/common.py`` ``toy_final_dump``). The eval draws come from a
+generator of their own seeded from (``--seed``, iteration), never from the
+training generator. Flags and cadences the port does not cover raise
+NotImplementedError naming their ROADMAP item whenever the run would use
+them; none is ignored in silence.
 
 Device: ``--no-cuda`` selects the CPU, as in the reference; otherwise the
 run needs a CUDA device and raises without one.
@@ -122,9 +125,6 @@ def _unsupported_flags(opt):
     """The parts of this run the port does not have yet, each with the
     ROADMAP item that ports it."""
     out = []
-    if opt.dataset in ("swissroll", "25gaussians") or opt.model in ("toy", "auxtoy"):
-        out.append(f"the toy datasets and models, and the toy final dump: "
-                   f"{_Q}slice 4 item 12")
     if opt.model == "toy-maf":
         out.append(f"toy-maf: {_Q}slice 6 item 14")
     elif opt.model.startswith("aux"):
@@ -148,12 +148,14 @@ def run(argv=None):
     opt = build_parser().parse_args(argv)
 
     from ardae_tpu_torch.cli.common import (
+        TOY_DATASETS,
         IndexStream,
         eval_generator,
         evaluate_iwae_vae,
         open_run,
         run_pipeline,
         select_device,
+        toy_final_dump,
     )
     from ardae_tpu_torch.core.annealing import annealing_func
     from ardae_tpu_torch.io.logging import logging
@@ -214,8 +216,14 @@ def run(argv=None):
                       "model/recon": m["recon_loss"], "model/kld": m["kld_loss"],
                       "model/beta": beta}
 
+    def final(writer):
+        from ardae_tpu_torch.models.vae.api import generate, reconstruct
+
+        toy_final_dump(opt, state.model, train_np, reconstruct, generate, writer)
+
     return run_pipeline(opt, state, generator, run_info, train_chunk, evaluate,
-                        log_train)
+                        log_train,
+                        final if opt.dataset in TOY_DATASETS else None)
 
 
 if __name__ == "__main__":

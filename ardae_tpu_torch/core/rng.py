@@ -2,7 +2,7 @@
 
 Every sampler takes an injected noise tensor (``eps=``) or draws it from an
 explicit ``torch.Generator``; nothing reads the global RNG. Laplace noise
-waits (ROADMAP queue 1, slice 4).
+has no caller (ROADMAP, "Not ported").
 """
 
 import torch

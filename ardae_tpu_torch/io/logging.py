@@ -21,6 +21,9 @@ class _NullWriter:
     def add_scalar(self, *a, **k):
         pass
 
+    def add_image(self, *a, **k):
+        pass
+
     def flush(self):
         pass
 

@@ -140,8 +140,8 @@ def dsm_noise(shape, generator=None, eps=None, device=None):
 def cdae_loss(module, latent, context, std, generator=None, eps=None):
     """Denoising score-matching loss mse(sigma * score(x + sigma*eps), -eps),
     mean over every element (reference resdae/mlp.py:344-381,
-    graddae/mlp.py:400-444). Gaussian noise only; the Laplace and uniform
-    noise types wait (ROADMAP queue 1, slice 4)."""
+    graddae/mlp.py:400-444). Gaussian noise only: no line of either
+    package sets the Laplace or uniform noise (ROADMAP, "Not ported")."""
     bsz, ssz, zdim = latent.shape
     x = latent.reshape(-1, zdim).to(torch.float32)
     stdv = _stdv(std, bsz, ssz, x)

@@ -1,11 +1,13 @@
 """Functional API of the implicit-posterior VAEs (JAX twin:
-ardae_tpu/models/ivae/api.py): sampling, the training loss and the IWS
-bound with a covariance-Gaussian pseudo-posterior. The KDE, diagonal and
-prior bounds wait (ROADMAP queue 1, slice 6).
+ardae_tpu/models/ivae/api.py): sampling, the training loss, generation and
+reconstruction, and the IWS bound with a covariance-Gaussian
+pseudo-posterior, each for a Bernoulli (``logit``) or a Gaussian (``mu,
+logvar``) likelihood. The KDE, diagonal and prior bounds wait (ROADMAP
+queue 1, slice 6).
 
-Every sampler takes an optional injected noise tensor (``eps=``) and
-otherwise draws from an explicit ``torch.Generator``; z always comes back
-(bsz, nz, z_dim).
+Every sampler takes an optional injected noise tensor (``eps=``, ``u=``)
+and otherwise draws from an explicit ``torch.Generator``; z always comes
+back (bsz, nz, z_dim).
 """
 
 import torch
@@ -14,8 +16,10 @@ from ardae_tpu_torch.core.energy import normal_energy_func
 from ardae_tpu_torch.core.losses import (
     iwae_bound,
     loss_recon_bernoulli_with_logit,
+    loss_recon_gaussian,
     reduce_batch,
 )
+from ardae_tpu_torch.core.rng import sample_gaussian
 from ardae_tpu_torch.core.stats import covmat, logprob_gaussian, mvn_logprob
 
 
@@ -45,6 +49,18 @@ def encode_det(module, x):
     return module.sample_z(x, eps)
 
 
+def recon_loss_fn(module, dist_params, target_flat):
+    """Per-row negative log-likelihood of ``target_flat`` under the decoder's
+    ``dist_params``."""
+    if module.likelihood == "bernoulli":
+        (logit,) = dist_params
+        return loss_recon_bernoulli_with_logit(
+            logit, target_flat.reshape(logit.shape[0], -1), reduce="per_item")
+    mu, logvar = dist_params
+    return loss_recon_gaussian(
+        mu, logvar, target_flat.reshape(mu.shape[0], -1), reduce="per_item")
+
+
 def ivae_loss(module, x, nz, beta=1.0, noise_std=None, generator=None,
               eps=None):
     """loss = mean(recon + beta * prior_energy); the q-entropy term is absent
@@ -53,15 +69,57 @@ def ivae_loss(module, x, nz, beta=1.0, noise_std=None, generator=None,
     bsz = x.shape[0]
     z = sample_latents(module, x, nz, noise_std, generator, eps)
     z_flat = z.reshape(bsz * nz, -1)
-    (logit,) = module.decode_params(z_flat)
+    dist_params = module.decode_params(z_flat)
     x_flat = x.reshape(bsz, -1)
     target = x_flat[:, None, :].expand(bsz, nz, x_flat.shape[-1])
-    recon = loss_recon_bernoulli_with_logit(
-        logit, target.reshape(bsz * nz, -1), reduce="per_item")
+    recon = recon_loss_fn(module, dist_params, target.reshape(bsz * nz, -1))
     prior = normal_energy_func(z_flat)
     loss = torch.mean(recon + beta * prior)
     return loss, {"z": z, "recon": torch.mean(recon),
-                  "prior": torch.mean(prior), "dist_params": (logit,)}
+                  "prior": torch.mean(prior), "dist_params": dist_params}
+
+
+def decode_sample(module, z, generator=None, u=None):
+    """(x sample, x mean or probabilities) of the decoder at z (bsz, z_dim):
+    a Bernoulli sample ``u < p`` (``u`` uniform) or a Gaussian one ``mu +
+    exp(logvar / 2) u`` (``u`` standard normal), ``u`` drawn from
+    ``generator`` when not given."""
+    dist_params = module.decode_params(z)
+    if module.likelihood == "bernoulli":
+        (logit,) = dist_params
+        probs = torch.sigmoid(logit)
+        if u is None:
+            if generator is None:
+                raise ValueError("the decoder sample needs a generator or an "
+                                 "injected u")
+            u = torch.rand(probs.shape, generator=generator,
+                           device=generator.device)
+        return (u.to(probs.device) < probs).to(torch.float32), probs
+    mu, logvar = dist_params
+    return sample_gaussian(mu, logvar, generator, u), mu
+
+
+def generate(module, batch_size, generator=None, eps=None, u=None):
+    """z ~ N(0, I), decoded and sampled (reference models/ivae/mnist.py:
+    303-316): (x sample, x mean or probabilities, z). ``eps`` is z itself,
+    (batch_size, z_dim); ``u`` the decoder sample's noise."""
+    device = next(module.parameters()).device
+    if eps is None:
+        if generator is None:
+            raise ValueError("generate needs a generator or an injected eps")
+        eps = torch.randn((batch_size, module.z_dim), generator=generator,
+                          device=generator.device)
+    z = eps.to(device=device, dtype=torch.float32)
+    return (*decode_sample(module, z, generator, u), z)
+
+
+def reconstruct(module, x, generator=None, eps=None, u=None):
+    """x -> one z ~ q(z|x) -> x sample: (x sample, x mean or probabilities,
+    z (bsz, z_dim)). ``eps``: the encoder's noise (bsz, noise_dim); ``u`` the
+    decoder sample's noise."""
+    z = sample_latents(module, x, 1, generator=generator, eps=eps)
+    z_flat = z.reshape(x.shape[0], -1)
+    return (*decode_sample(module, z_flat, generator, u), z_flat)
 
 
 def logprob_iws(module, x, sample_size, jitter=0.0, noise_std=None,
@@ -111,13 +169,20 @@ def cov_gaussian_iws_from_draws(module, x, z, jitter=0.0, generator=None,
 
 def _loglik_and_prior(module, x, newz):
     """log p(x|z) + log p(z) terms, each (bsz, ssz)."""
-    if module.likelihood != "bernoulli":
-        raise NotImplementedError(
-            "Gaussian likelihoods are not ported yet: ROADMAP queue 1, "
-            "slice 3 (item 11, the Normal head)")
     bsz, ssz, zdim = newz.shape
     logprior = torch.sum(logprob_gaussian(0.0, 0.0, newz), dim=-1)
-    (logit,) = module.decode_params(newz.reshape(bsz * ssz, zdim))
-    neg_ll = loss_recon_bernoulli_with_logit(
-        logit.reshape(bsz, ssz, -1), x.reshape(bsz, 1, -1), reduce="none")
-    return -torch.sum(neg_ll, dim=-1), logprior
+    dist_params = module.decode_params(newz.reshape(bsz * ssz, zdim))
+    return loglik(module, dist_params, x.reshape(bsz, 1, -1), (bsz, ssz)), logprior
+
+
+def loglik(module, dist_params, target, lead):
+    """log p(target | z) summed over the features, shaped ``lead``: the
+    decoder's flat ``dist_params`` reshaped to (*lead, D) against ``target``
+    (broadcast to it)."""
+    dist_params = [p.reshape(*lead, -1) for p in dist_params]
+    if module.likelihood == "bernoulli":
+        (logit,) = dist_params
+        return -torch.sum(loss_recon_bernoulli_with_logit(
+            logit, target, reduce="none"), dim=-1)
+    mu, logvar = dist_params
+    return torch.sum(logprob_gaussian(mu, logvar, target), dim=-1)

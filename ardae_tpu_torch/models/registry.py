@@ -1,20 +1,23 @@
 """Model factories keyed by the reference CLI names (JAX twin:
 ardae_tpu/models/registry.py). The port builds the implicit VAEs
-``mnist-conv`` and all ten resconv names, both cdae styles, and the
-baseline VAEs ``mnist``, ``conv``, ``resconv`` and ``resconvct``; every
-other name raises NotImplementedError naming the ROADMAP item that ports
-it. Every build function puts the module on the card unless the caller asks
-for the CPU (``device="cpu"``); without a card that default raises rather
-than falling back."""
+``mlp-concat``, ``mnist-concat``, ``mnist-conv`` and all ten resconv names,
+both cdae styles, and the baseline VAEs ``toy``, ``mnist``, ``conv``,
+``resconv`` and ``resconvct``; every other name raises NotImplementedError
+naming the ROADMAP item that ports it. Every build function puts the module
+on the card unless the caller asks for the CPU (``device="cpu"``); without
+a card that default raises rather than falling back."""
 
 import torch
 
 from ardae_tpu_torch.models.cdae.cardae import MLPGradCARDAE, MLPResCARDAE
 from ardae_tpu_torch.models.ivae.conv import ConvIPVAE
+from ardae_tpu_torch.models.ivae.mnist import MNISTIPVAE
 from ardae_tpu_torch.models.ivae.resconv import ResConvIPVAE
+from ardae_tpu_torch.models.ivae.toy import ToyIPVAE
 from ardae_tpu_torch.models.vae.conv import MNISTConvVAE
 from ardae_tpu_torch.models.vae.mnist import MNISTVAE
 from ardae_tpu_torch.models.vae.resconv import MNISTResConvVAE
+from ardae_tpu_torch.models.vae.toy import ToyVAE
 from ardae_tpu_torch.nn.initializers import init_module
 
 _RESCONV_ENC = {  # name -> (fc head, do_center)
@@ -28,11 +31,11 @@ _RESCONV_ENC = {  # name -> (fc head, do_center)
 
 _Q = "ROADMAP queue 1, "
 _LATER = {
-    "mlp-concat": _Q + "slice 4 (item 12)",
-    "mnist-concat": _Q + "slice 4 (item 12)",
-    "toy": _Q + "slice 4 (item 12, the toy family)",
     "toy-maf": _Q + "slice 6 (item 14, nn/made.py + models/vae/maf.py)",
-    "cdae mlp": _Q + "slice 4 (item 12, models/cdae/legacy.py)",
+    # porting models/cdae/legacy.py (queue 1) will not make it build: both
+    # drivers refuse --cdae mlp, as the JAX ones do
+    "cdae mlp": ("the legacy reconstruction DAE, which no driver builds "
+                 "(ROADMAP queue 1, models/cdae/legacy.py)"),
 }
 
 
@@ -53,6 +56,12 @@ def build_ivae_model(name, *, nchannels=2, nheight=1, z_dim=2, h_dim=128,
                      n_dim=2, n_layers=2, nonlin="relu", seed=0, device="cuda"):
     """The implicit VAE ``name``, parameters drawn from ``seed``. mnist-conv
     has fixed widths: ``h_dim`` and ``n_layers`` are not read."""
+    concat = {"mlp-concat": ToyIPVAE, "mnist-concat": MNISTIPVAE}
+    if name in concat:
+        model = concat[name](input_dim=nchannels * nheight * nheight,
+                             noise_dim=n_dim, h_dim=h_dim, z_dim=z_dim,
+                             nonlinearity=nonlin, num_hidden_layers=n_layers)
+        return _init(model, seed, device)
     if name == "mnist-conv":
         model = ConvIPVAE(input_height=nheight, input_channels=nchannels,
                           z_dim=z_dim, noise_dim=n_dim, nonlinearity=nonlin)
@@ -76,7 +85,10 @@ def build_vae_model(name, *, nchannels=1, nheight=28, z_dim=8, h_dim=300,
     are ``n_dim`` and ``clip_logvar`` by any ported model. ``resconvct``
     centres its input and ``resconv`` does not, as in the JAX registry (the
     reference driver centres neither, vae.py:233-249)."""
-    if name == "mnist":
+    if name == "toy":
+        model = ToyVAE(input_dim=nchannels * nheight * nheight, h_dim=h_dim,
+                       z_dim=z_dim, nonlinearity=nonlin, num_hidden_layers=n_layers)
+    elif name == "mnist":
         model = MNISTVAE(input_dim=nchannels * nheight * nheight, h_dim=h_dim,
                          z_dim=z_dim, nonlinearity=nonlin,
                          num_hidden_layers=n_layers)

@@ -39,12 +39,16 @@ def clip_logvar(logvar, mode):
 class NormalHead(nn.Module):
     """Linear mean and linear (clipped) logvar, ``mean_fn`` and
     ``logvar_fn`` (reference models/reparam.py:62-76); ``xavier`` gives both
-    xavier-uniform weights and zero biases."""
+    xavier-uniform weights and zero biases; ``normal_mean`` draws the mean
+    weight from N(0, 1) (the JAX twin's ``mean_kernel_init=normal_init(1.0)``
+    of the toy decoders)."""
 
-    def __init__(self, in_features, features, clip=None, xavier=False):
+    def __init__(self, in_features, features, clip=None, xavier=False,
+                 normal_mean=False):
         super().__init__()
         self.clip = clip
-        self.mean_fn = Linear(in_features, features, xavier=xavier)
+        self.mean_fn = Linear(in_features, features, xavier=xavier,
+                              normal=normal_mean)
         self.logvar_fn = Linear(in_features, features, xavier=xavier)
 
     def forward(self, h):

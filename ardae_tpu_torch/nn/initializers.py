@@ -4,8 +4,9 @@ The torch-1.2 default of ``nn.Linear`` and ``nn.Conv2d`` is
 kaiming_uniform(a=sqrt(5)), which equals U(+-1/sqrt(fan_in)) for the weight,
 and U(+-1/sqrt(fan_in)) for the bias. The reference's ``weight_init``
 (models/ivae/mnist.py:20-25) is xavier-uniform weights and zero biases.
-Every draw takes an explicit ``torch.Generator``; nothing reads the global
-RNG.
+Several heads draw their weight from N(0, 1) instead (the JAX twin's
+``normal_init(1.0)``, e.g. models/ivae/toy.py:91). Every draw takes an
+explicit ``torch.Generator``; nothing reads the global RNG.
 """
 
 import math
@@ -20,6 +21,16 @@ def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator):
         u = torch.rand(t.shape, generator=generator, dtype=t.dtype,
                        device=generator.device)
         t.copy_(u.mul_(2.0 * bound).sub_(bound))
+    return t
+
+
+def normal_(t: torch.Tensor, generator: torch.Generator):
+    """In-place N(0, 1) from ``generator`` (drawn on its device, then
+    copied)."""
+    with torch.no_grad():
+        n = torch.randn(t.shape, generator=generator, dtype=t.dtype,
+                        device=generator.device)
+        t.copy_(n)
     return t
 
 

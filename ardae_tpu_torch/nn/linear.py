@@ -10,17 +10,20 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ardae_tpu_torch.nn.initializers import torch_default_, xavier_
+from ardae_tpu_torch.nn.initializers import normal_, torch_default_, xavier_
 
 
 class Linear(nn.Module):
     """nn.Linear with torch-1.2 default init, or xavier-uniform weight and
-    zero bias (``xavier=True``)."""
+    zero bias (``xavier=True``). ``normal=True`` then draws the weight from
+    N(0, 1) instead and leaves the bias as it was (the JAX twin's
+    ``kernel_init=normal_init(1.0)``)."""
 
-    def __init__(self, in_features, out_features, use_bias=True, xavier=False):
+    def __init__(self, in_features, out_features, use_bias=True, xavier=False,
+                 normal=False):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
-        self.xavier = xavier
+        self.xavier, self.normal = xavier, normal
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = (nn.Parameter(torch.empty(out_features))
                      if use_bias else None)
@@ -31,6 +34,8 @@ class Linear(nn.Module):
                     self.out_features, generator)
         else:
             torch_default_(self.weight, self.bias, self.in_features, generator)
+        if self.normal:
+            normal_(self.weight, generator)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)

@@ -18,13 +18,16 @@ Phases (each failure exits non-zero):
      gradients are bitwise equal;
   3b. the same for the grad-style (second-order) kernel: at the
      implicit-conv line's shape (n = 128 x 625, d 32, h 256, 5 layers,
-     softplus) and at ragged small shapes. Bounds for both: loss relative
-     error <= 1e-5; every gradient, d/d(ctx_l0) included,
+     softplus; mnist-concat's too), at the 25-gaussians line's (n = 512 x
+     256, d 2, h 256, 3 layers, softplus: rows of 2 floats, not 16-byte
+     aligned) and at ragged small shapes, d 2 among them. Bounds for both:
+     loss relative error <= 1e-5; every gradient, d/d(ctx_l0) included,
      ||kernel - plain|| / ||plain|| <= 1e-4 (3xTF32 products, fp32 sums in
      another order);
   4. times the res-style kernel and its plain version at the flagship shape,
-  4b. and the grad-style pair at the implicit-conv shape (CUDA events,
-     warm-up, median of 7, in the order plain, kernel, kernel, plain), and
+  4b. and the grad-style pair at the implicit-conv and 25-gaussians shapes
+     (CUDA events, warm-up, median of 7, in the order plain, kernel,
+     kernel, plain), and
      the chain's matrix products alone as torch.matmul calls (fp32, TF32
      off: the yardstick library_ms, which the port never calls);
   5. drives the main path, cli.ivae_ardae with the flags of the flagship
@@ -36,6 +39,14 @@ Phases (each failure exits non-zero):
      update and the other kernel never, that every logged loss is finite,
      that the parameters moved, and that the trained encoder gives finite
      latents of the expected shape;
+  5d. the same for the mnist-concat line (:47, mnist-concat + mlp-grad), 6
+     steps with --use-kernels;
+  5e. and for the 25-gaussians line (scripts/run_vae_25gaussians.sh,
+     mlp-concat + mlp-grad, d 2) at --toy-train-size 262144 (full widths
+     and batch), 6 steps with --use-kernels and then the toy final dump
+     (two chunks of 131,072 rows, reconstructed and generated): its
+     launches are checked over the whole run, so the dump may launch none,
+     and the dump must log its rows and no non-finite value;
   5c. drives the flagship line's flags with --model changed to each of the
      other four resconv fc heads (resconv: mlp; resconvct-res2: res-mlp;
      resconv-res3: res-wn-mlp-lin; resconvct-res4: res-mlp-lin), 4 steps
@@ -75,8 +86,12 @@ Phases (each failure exits non-zero):
      logprob_iwae and vae_loss(reduce="per_item") on the card against the
      same functions on the CPU (the trained resconv model, 16 val items,
      the same injected draws): per item |card - CPU| <= 1e-3 nats.
-Then it prints the kernels' JSON line (each kernel's launches on the main
-path, error, times, FLOP, launches per step, and its bound: the larger of
+  7b. drives cli.vae --model toy on the 25-gaussians data of 5e (z 2, h
+     256, 2 layers, bs 512): 6 steps and the toy final dump, no launch.
+Then it prints the kernels' JSON line (each kernel's launches over the
+main path's runs, and at its first line's shape its error, times, FLOP,
+launches per step and bound, the grad kernel's 25-gaussians shape beside
+them under "at_25-gaussians"; the bound is the larger of
 3 x FLOP over the 495 TFLOP/s TF32 tensor-core peak, the kernel's products
 being 3xTF32, and its inputs' and outputs' bytes over 3.35 TB/s; beside it
 the fp32 CUDA-core bound, FLOP over 67 TFLOP/s; H100 SXM peaks at 700 W),
@@ -130,6 +145,33 @@ IMPLICIT_CONV_ARGS = [
     "--m-weight-avg-start", "-1", "--m-weight-avg-decay", "0.998",
     "--vis-interval", "50000", "--train-mode", "train",
 ]
+# scripts/run_vae_dbmnist.sh:47, the mnist-concat line
+MNIST_CONCAT_ARGS = list(IMPLICIT_CONV_ARGS)
+for _flag, _value in (("--model", "mnist-concat"), ("--model-h-dim", "300"),
+                      ("--model-n-layers", "2")):
+    MNIST_CONCAT_ARGS[MNIST_CONCAT_ARGS.index(_flag) + 1] = _value
+# scripts/run_vae_25gaussians.sh, the 25-gaussians line, depth cut by
+# --toy-train-size (two whole dump chunks)
+TOY_DATA = ["--dataset", "25gaussians", "--nheight", "1", "--nchannels", "2",
+            "--toy-train-size", "262144"]
+TOY_ARGS = TOY_DATA + [
+    "--model", "mlp-concat", "--model-z-dim", "2", "--model-h-dim", "256",
+    "--model-n-layers", "2", "--model-nonlin", "relu", "--model-n-dim", "10",
+    "--model-clip-z0-logvar", "none", "--model-clip-z-logvar", "none",
+    "--cdae", "mlp-grad", "--cdae-h-dim", "256", "--cdae-n-layers", "3",
+    "--cdae-nonlin", "softplus", "--cdae-ctx-type", "lt0",
+    "--train-batch-size", "512", "--eval-batch-size", "1",
+    "--train-nz-cdae", "256", "--train-nz-model", "1", "--delta", "0.1",
+    "--std-scale", "10000", "--num-cdae-updates", "1", "--m-lr", "0.0001",
+    "--m-optimizer", "adam", "--m-momentum", "0.5", "--m-beta1", "0.5",
+    "--d-lr", "0.0001", "--d-optimizer", "rmsprop", "--d-momentum", "0.5",
+    "--d-beta1", "0.5", "--epochs", "16", "--iws-samples", "64", "--exp-num", "1"]
+# phase 7b: cli.vae --model toy on the same data and widths
+TOY_VAE_ARGS = TOY_DATA + [
+    "--model", "toy", "--model-z-dim", "2", "--model-h-dim", "256",
+    "--model-n-layers", "2", "--model-nonlin", "softplus",
+    "--train-batch-size", "512", "--optimizer", "adam", "--beta1", "0.5",
+    "--lr", "0.001", "--epochs", "1", "--iws-samples", "8"]
 SMOKE_ARGS = ["--log-interval", "2", "--eval-iws-interval", "0",
               "--ckpt-interval", "0", "--skip-final-test-eval", "--no-resume"]
 STEPS, HEAD_STEPS = 6, 4
@@ -338,9 +380,8 @@ def time_ms(torch, fn, reps=7):
     return statistics.median(ts)
 
 
-def check_kernel(torch, dev, build_cdae, k, what):
-    """Phase 3/3b: kernel vs plain at the ragged shapes and the line's
-    shape; returns the line's inputs and its (loss abs err, grad abs err)."""
+def check_ragged(torch, dev, build_cdae, k, what):
+    """Phase 3/3b: kernel vs plain at the ragged shapes."""
     for bsz, ssz, d, h, layers, act, seed in k["ragged"]:
         args = dsm_case(k["prepare"], build_cdae, torch, dev, k["cdae"], bsz, ssz,
                         d, h, layers, act, seed)
@@ -349,18 +390,24 @@ def check_kernel(torch, dev, build_cdae, k, what):
               f"layers={layers} {act}: loss rel {lrel:.2e}, worst grad rel-norm "
               f"{grel:.2e}", flush=True)
         if not (lrel <= LOSS_RTOL and grel <= GRAD_RTOL):
-            fail(f"{k['cdae']} kernel disagrees with the plain version ({act}, h={h})")
-    bsz, ssz, d, h, layers, act, seed = k["line"]
+            fail(f"{k['cdae']} kernel disagrees with the plain version ({act}, "
+                 f"d={d}, h={h})")
+
+
+def check_line(torch, dev, build_cdae, k, what, line, shape):
+    """Phase 3/3b: kernel vs plain at a line's shape, and a bitwise repeat;
+    returns the inputs and (loss abs err, grad abs err)."""
+    bsz, ssz, d, h, layers, act, seed = shape
     args = dsm_case(k["prepare"], build_cdae, torch, dev, k["cdae"], bsz, ssz, d,
                     h, layers, act, seed)
     lrel, labs, grel, gabs = compare(torch, k["fn"].apply, k["plain"], args)
-    print(f"{what} compare {k['cdae']} at the {k['line_name']} shape n={bsz}x{ssz} "
+    print(f"{what} compare {k['cdae']} at the {line} shape n={bsz}x{ssz} "
           f"d={d} h={h} layers={layers} {act}: loss rel {lrel:.2e} (abs "
           f"{labs:.2e}), worst grad rel-norm {grel:.2e} (max abs {gabs:.2e})",
           flush=True)
     if not (lrel <= LOSS_RTOL and grel <= GRAD_RTOL):
         fail(f"{k['cdae']} kernel disagrees with the plain version at the "
-             f"{k['line_name']} shape")
+             f"{line} shape")
     leaves = [args[5]] + list(args[6:])
     runs = []
     for _ in range(2):
@@ -368,14 +415,13 @@ def check_kernel(torch, dev, build_cdae, k, what):
         runs.append([loss.detach()] + grads(torch, loss, leaves))
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
-        fail(f"{k['cdae']} kernel is not bitwise repeatable at the "
-             f"{k['line_name']} shape")
-    print(f"{what} repeat {k['cdae']} at the {k['line_name']} shape: loss and "
+        fail(f"{k['cdae']} kernel is not bitwise repeatable at the {line} shape")
+    print(f"{what} repeat {k['cdae']} at the {line} shape: loss and "
           f"{len(leaves)} gradients bitwise equal over two runs", flush=True)
     return args, labs, gabs
 
 
-def time_kernel(torch, k, args, what, card):
+def time_kernel(torch, k, args, what, line, card):
     """Phase 4/4b: median ms of fwd, bwd and fwd+bwd, kernel and plain, in
     turns plain, kernel, kernel, plain."""
     leaves = [args[5]] + list(args[6:])
@@ -392,15 +438,18 @@ def time_kernel(torch, k, args, what, card):
     lib = library_ms(torch, k["kind"], args)
     med["library"] = [lib["fwd"], lib["bwd"], lib["fwd"] + lib["bwd"]]
     fl = flops(k["kind"], args)
-    print(f"{what} time {k['cdae']} at the {k['line_name']} shape (median of 7, "
+    print(f"{what} time {k['cdae']} at the {line} shape (median of 7, "
           f"two turns each): kernel fwd {med['kernel'][0]:.3f} ms bwd "
           f"{med['kernel'][1]:.3f} ms fwd+bwd {med['kernel'][2]:.3f} ms | plain "
           f"fwd {med['plain'][0]:.3f} ms bwd {med['plain'][1]:.3f} ms fwd+bwd "
           f"{med['plain'][2]:.3f} ms | products alone (torch.matmul fp32) fwd "
           f"{lib['fwd']:.3f} ms bwd {lib['bwd']:.3f} ms | kernel "
           f"{fl['fwd'] / med['kernel'][0] / 1e9:.1f} / "
-          f"{fl['bwd'] / med['kernel'][1] / 1e9:.1f} TFLOP/s fwd / bwd | {card}",
-          flush=True)
+          f"{fl['bwd'] / med['kernel'][1] / 1e9:.1f} TFLOP/s fwd / bwd | bound "
+          f"3xTF32 {3e3 * fl['fwd'] / TF32_FLOPS:.3f} / "
+          f"{3e3 * fl['bwd'] / TF32_FLOPS:.3f} ms, fp32 "
+          f"{1e3 * fl['fwd'] / FP32_FLOPS:.3f} / {1e3 * fl['bwd'] / FP32_FLOPS:.3f} "
+          f"ms fwd / bwd | {card}", flush=True)
     return med
 
 
@@ -414,16 +463,25 @@ def read_counts(kernels):
     return {n: c for k in kernels for n, c in k["fn"].launches.items()}
 
 
-def drive_line(torch, dev, k, line_args, model, build_ivae_model, build_cdae,
-               kernels, what, card, steps=STEPS, data_root=None):
-    """Phase 5/5b/5c: ``steps`` steps of a line through cli.ivae_ardae.run
-    with --use-kernels; every launch counter is 0 just before and read just
-    after. Returns this kernel's launches."""
+def flag(args, name):
+    """The value after the last ``name`` in an argument list."""
+    return args[len(args) - 1 - args[::-1].index(name) + 1]
+
+
+def drive_line(torch, dev, k, kernels, line_args, what, card, steps=STEPS,
+               data_root=None, dump=False):
+    """Phase 5/5b/5c/5d/5e: ``steps`` steps of a line through
+    cli.ivae_ardae.run with --use-kernels (then, with ``dump``, the toy final
+    dump instead of skipping the test eval); every launch counter is 0 just
+    before and read just after. Returns this kernel's launches."""
     from ardae_tpu_torch.cli import ivae_ardae
     from ardae_tpu_torch.models.ivae import api as ivae_api
+    from ardae_tpu_torch.models.registry import build_cdae, build_ivae_model
 
+    name = flag(line_args, "--model")
     with tempfile.TemporaryDirectory() as tmp:
-        argv = line_args + SMOKE_ARGS + [
+        smoke = [a for a in SMOKE_ARGS if not (dump and a == "--skip-final-test-eval")]
+        argv = line_args + smoke + [
             "--use-kernels", "--max-iters", str(steps),
             "--cache", os.path.join(tmp, "exp"),
             "--data-root", data_root or os.path.join(tmp, "data")]
@@ -434,12 +492,12 @@ def drive_line(torch, dev, k, line_args, model, build_ivae_model, build_cdae,
         wall = time.perf_counter() - t0
         launches = read_counts(kernels)
         with open(os.path.join(path, "log.txt")) as f:
-            lines = [ln for ln in f if ln.startswith("| iter ")]
+            log = f.readlines()
+    lines = [ln for ln in log if ln.startswith("| iter ")]
     expected = {n: (steps * k["updates"] if n in k["fn"].launches else 0)
                 for n in launches}
     if launches != expected:
-        fail(f"{what} {model['name']}: kernel launches {launches}, expected "
-             f"{expected}")
+        fail(f"{what} {name}: kernel launches {launches}, expected {expected}")
     if len(lines) != steps // 2:
         fail(f"expected {steps // 2} log lines, got {len(lines)}")
     losses = [float(v) for ln in lines for v in re.findall(
@@ -447,9 +505,18 @@ def drive_line(torch, dev, k, line_args, model, build_ivae_model, build_cdae,
     if not losses or not all(math.isfinite(v) for v in losses):
         fail(f"non-finite logged losses: {losses}")
     ms_step = [float(re.search(r"ms/step\s+(\S+)", ln).group(1)) for ln in lines]
-    init_m = build_ivae_model(**model, seed=0, device=dev)
-    init_d = build_cdae(k["cdae"], input_dim=32, context_dim=32, h_dim=k["line"][3],
-                        n_layers=5, nonlin="softplus", seed=1, device=dev)
+    nchannels, nheight = int(flag(line_args, "--nchannels")), int(flag(line_args, "--nheight"))
+    z_dim = int(flag(line_args, "--model-z-dim"))
+    init_m = build_ivae_model(
+        name, nchannels=nchannels, nheight=nheight, z_dim=z_dim,
+        h_dim=int(flag(line_args, "--model-h-dim")),
+        n_dim=int(flag(line_args, "--model-n-dim")),
+        n_layers=int(flag(line_args, "--model-n-layers")),
+        nonlin=flag(line_args, "--model-nonlin"), seed=0, device=dev)
+    init_d = build_cdae(k["cdae"], input_dim=z_dim, context_dim=z_dim,
+                        h_dim=int(flag(line_args, "--cdae-h-dim")),
+                        n_layers=int(flag(line_args, "--cdae-n-layers")),
+                        nonlin=flag(line_args, "--cdae-nonlin"), seed=1, device=dev)
     for a, b, who in ((state.model, init_m, "model"), (state.cdae, init_d, "cdae")):
         moved = sum(float((p.detach() - q.detach()).abs().max()) > 0
                     for p, q in zip(a.parameters(), b.parameters()))
@@ -458,17 +525,37 @@ def drive_line(torch, dev, k, line_args, model, build_ivae_model, build_cdae,
         if moved == 0:
             fail(f"{who} parameters did not change")
     with torch.no_grad():
-        x = (torch.rand(8, 784, device=dev) < 0.3).float()
+        x = (torch.rand(8, nchannels * nheight ** 2, device=dev) < 0.3).float()
         z = ivae_api.encode_det(state.model, x)
-    if tuple(z.shape) != (8, 1, 32) or not bool(torch.isfinite(z).all()):
-        fail(f"trained encoder output {tuple(z.shape)} not finite/(8, 1, 32)")
-    print(f"{what} main path: {steps} steps of the {k['line_name']} line "
-          f"({model['name']}) with --use-kernels in {wall:.1f} s (set-up "
-          f"included); ms/step per log "
-          f"interval {ms_step}; steady {ms_step[-1]:.2f} ms/step = "
-          f"{1000.0 / ms_step[-1]:.3f} steps/s; kernel launches {launches}; "
-          f"losses finite | {card}", flush=True)
+    if tuple(z.shape) != (8, 1, z_dim) or not bool(torch.isfinite(z).all()):
+        fail(f"trained encoder output {tuple(z.shape)} not finite/(8, 1, {z_dim})")
+    if dump:
+        check_dump(log, line_args, what)
+    print(f"{what} main path: {steps} steps of the {name} line with "
+          f"--use-kernels in {wall:.1f} s (set-up{' and dump' if dump else ''} "
+          f"included); ms/step per log interval {ms_step}; steady "
+          f"{ms_step[-1]:.2f} ms/step = {1000.0 / ms_step[-1]:.3f} steps/s; "
+          f"kernel launches {launches}; losses finite | {card}", flush=True)
     return launches
+
+
+def check_dump(log, line_args, what):
+    """The toy final dump's log line: every chunk's rows (whole chunks of
+    the first min(1M, n_train) points, as the JAX driver takes them) and no
+    non-finite value."""
+    from ardae_tpu_torch.cli.common import DUMP_CHUNK as chunk
+
+    n_train = int(flag(line_args, "--toy-train-size"))
+    n_dump = min(1_000_000, n_train)
+    rows = sum(min(chunk, n_train - lo) for lo in range(0, n_dump, chunk))
+    got = [ln for ln in log if ln.startswith("| toy dump")]
+    if len(got) != 1:
+        fail(f"{what}: expected one toy dump line, got {got}")
+    m = re.search(r"sec\s+(\S+) \| rows (\d+) \| non-finite (\d+)", got[0])
+    if not m or int(m.group(2)) != rows or int(m.group(3)) != 0:
+        fail(f"{what}: toy dump {got[0].strip()}, expected {rows} rows, all finite")
+    print(f"{what}: toy final dump of {rows} rows (recon, gen, latent all "
+          f"finite) in {float(m.group(1)):.2f} s", flush=True)
 
 
 def pipeline_run(torch, kernels, path_log, argv, what, driver=None):
@@ -686,26 +773,16 @@ def drive_pipeline(torch, res, kernels, card):
     torch.cuda.empty_cache()
 
 
-def drive_heads(torch, dev, res, kernels, build_ivae_model, build_cdae, card):
+def drive_heads(torch, dev, res, kernels, card):
     """Phase 5c: HEAD_STEPS steps of the flagship line's flags with --model
     set to each of the four other resconv fc heads, one data directory
     shared."""
-    def flag(name):
-        return FLAGSHIP_ARGS[FLAGSHIP_ARGS.index(name) + 1]
-
     with tempfile.TemporaryDirectory() as tmp:
         for name, head in HEADS.items():
             args = list(FLAGSHIP_ARGS)
             args[args.index("resconvct-res")] = name
-            model = dict(name=name, nchannels=1, nheight=28,
-                         z_dim=int(flag("--model-z-dim")),
-                         h_dim=int(flag("--model-h-dim")),
-                         n_dim=int(flag("--model-n-dim")),
-                         n_layers=int(flag("--model-n-layers")),
-                         nonlin=flag("--model-nonlin"))
-            drive_line(torch, dev, res, args, model, build_ivae_model, build_cdae,
-                       kernels, f"phase 5c {head}", card, steps=HEAD_STEPS,
-                       data_root=os.path.join(tmp, "data"))
+            drive_line(torch, dev, res, kernels, args, f"phase 5c {head}", card,
+                       steps=HEAD_STEPS, data_root=os.path.join(tmp, "data"))
             torch.cuda.empty_cache()
 
 
@@ -714,7 +791,6 @@ def drive_baseline_line(torch, dev, kernels, line, tmp, card):
     no kernel may launch, the logged losses are finite and the parameters
     move."""
     from ardae_tpu_torch.cli import vae
-    from ardae_tpu_torch.models.registry import build_vae_model
 
     what = f"phase 7 {line}"
     argv = BASELINE_LINES[line] + SMOKE_ARGS + [
@@ -722,6 +798,15 @@ def drive_baseline_line(torch, dev, kernels, line, tmp, card):
         "--data-root", os.path.join(tmp, "data")]
     state, path, launches, lines = pipeline_run(torch, kernels, None, argv, what,
                                                 driver=vae)
+    baseline_checks(torch, dev, state, launches, lines, path,
+                    BASELINE_MODELS[line], what, card)
+
+
+def baseline_checks(torch, dev, state, launches, lines, path, model, what, card):
+    """Phase 7/7b's checks of a baseline run: no launch, the logged
+    iterations and losses finite, the parameters moved."""
+    from ardae_tpu_torch.models.registry import build_vae_model
+
     check_pipeline_run(None, launches, lines, STEPS,
                        [f"iter {i}" for i in range(2, STEPS + 1, 2)], 0, [], path,
                        what)
@@ -729,7 +814,7 @@ def drive_baseline_line(torch, dev, kernels, line, tmp, card):
               for v in re.findall(r"\| (?:loss(?: \(\w+\))?|elbo) (\S+)", ln)]
     if len(values) != 4 * (STEPS // 2) or not all(math.isfinite(v) for v in values):
         fail(f"{what}: logged losses {values} not all finite")
-    init = build_vae_model(**BASELINE_MODELS[line], seed=0, device=dev)
+    init = build_vae_model(**model, seed=0, device=dev)
     moved = sum(float((p.detach() - q.detach()).abs().max()) > 0
                 for p, q in zip(state.model.parameters(), init.parameters()))
     total = len(list(init.parameters()))
@@ -737,6 +822,28 @@ def drive_baseline_line(torch, dev, kernels, line, tmp, card):
           f"kernel launch, losses finite | {card}", flush=True)
     if moved == 0:
         fail(f"{what}: the parameters did not change")
+
+
+def drive_toy_baseline(torch, dev, kernels, card):
+    """Phase 7b: STEPS steps of cli.vae --model toy on the 25-gaussians
+    data, then the toy final dump; no kernel may launch."""
+    from ardae_tpu_torch.cli import vae
+
+    what = "phase 7b toy"
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = TOY_VAE_ARGS + [a for a in SMOKE_ARGS
+                               if a != "--skip-final-test-eval"] + [
+            "--max-iters", str(STEPS), "--cache", os.path.join(tmp, "exp"),
+            "--data-root", os.path.join(tmp, "data")]
+        state, path, launches, lines = pipeline_run(torch, kernels, None, argv,
+                                                    what, driver=vae)
+        model = dict(name="toy", nchannels=2, nheight=1,
+                     **{k: int(flag(TOY_VAE_ARGS, f"--model-{k.replace('_', '-')}"))
+                        for k in ("z_dim", "h_dim", "n_layers")},
+                     nonlin=flag(TOY_VAE_ARGS, "--model-nonlin"))
+        baseline_checks(torch, dev, state, launches, lines, path, model, what,
+                        card)
+        check_dump(lines, TOY_VAE_ARGS, what)
 
 
 def iwae_card_vs_cpu(torch, state, data_root, what):
@@ -834,7 +941,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from ardae_tpu_torch.models.registry import build_cdae, build_ivae_model
+        from ardae_tpu_torch.models.registry import build_cdae
         from ardae_tpu_torch.ops import fused_dsm as fd
         from ardae_tpu_torch.ops import fused_dsm_grad as fg
         from ardae_tpu_torch.ops import native
@@ -847,18 +954,20 @@ def main():
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} | {card} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
+    acts = ("softplus", "relu", "tanh")
     res = {"cdae": "mlp-res", "kind": "res", "fn": fd.FusedDSMFunction,
            "plain": fd.dsm_chain_reference, "prepare": fd.prepare_inputs,
-           "line_name": "flagship", "updates": 2,
-           "ragged": [(3, 37, 5, 24, 2, a, 1) for a in ("softplus", "relu", "tanh")]
+           "updates": 2,
+           "ragged": [(3, 37, 5, 24, 2, a, 1) for a in acts]
            + [(4, 300, 32, 136, 3, "tanh", 2)],
-           "line": (128, 625, 32, 512, 5, "softplus", 3)}
+           "lines": {"flagship": (128, 625, 32, 512, 5, "softplus", 3)}}
     grad = {"cdae": "mlp-grad", "kind": "grad", "fn": fg.FusedDSMGradFunction,
             "plain": fg.dsm_grad_chain_reference, "prepare": fd.prepare_inputs,
-            "line_name": "implicit-conv", "updates": 1,
-            "ragged": [(3, 37, 5, 24, 2, a, 1) for a in ("softplus", "relu", "tanh")]
+            "updates": 1,
+            "ragged": [(3, 37, d, 24, 2, a, 1) for d in (5, 2) for a in acts]
             + [(4, 50, 32, 136, 3, "tanh", 2)],
-            "line": (128, 625, 32, 256, 5, "softplus", 3)}
+            "lines": {"implicit-conv": (128, 625, 32, 256, 5, "softplus", 3),
+                      "25-gaussians": (512, 256, 2, 256, 3, "softplus", 4)}}
     kernels = (res, grad)
 
     t0 = time.perf_counter()
@@ -889,46 +998,53 @@ def main():
     # fp32 comparisons: TF32 off for every matmul and convolution
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    errs, med, work = {}, {}, {}
+    shapes = {}   # (cdae, line) -> (errors, medians, (flop, bytes))
     for k, what in ((res, "phase 3"), (grad, "phase 3b")):
-        args, labs, gabs = check_kernel(torch, dev, build_cdae, k, what)
-        errs[k["cdae"]] = (labs, gabs)
-        med[k["cdae"]] = time_kernel(torch, k, args, what.replace("3", "4"), card)
-        work[k["cdae"]] = (flops(k["kind"], args),
-                           io_bytes(args, [args[5]] + list(args[6:])))
-        del args
+        check_ragged(torch, dev, build_cdae, k, what)
+        for line, shape in k["lines"].items():
+            args, labs, gabs = check_line(torch, dev, build_cdae, k, what, line,
+                                          shape)
+            med = time_kernel(torch, k, args, what.replace("3", "4"), line, card)
+            shapes[k["cdae"], line] = ((labs, gabs), med, (
+                flops(k["kind"], args), io_bytes(args, [args[5]] + list(args[6:]))))
+            del args
+            torch.cuda.empty_cache()
+
+    launches = {}   # each kernel's launches over the main path's runs
+    for k, what, line_args, dump in (
+            (res, "phase 5", FLAGSHIP_ARGS, False),
+            (grad, "phase 5b", IMPLICIT_CONV_ARGS, False),
+            (grad, "phase 5d", MNIST_CONCAT_ARGS, False),
+            (grad, "phase 5e", TOY_ARGS, True)):
+        for n, c in drive_line(torch, dev, k, kernels, line_args, what, card,
+                               dump=dump).items():
+            if n in k["fn"].launches:
+                launches[n] = launches.get(n, 0) + c
         torch.cuda.empty_cache()
 
-    launches = {}
-    for k, what, line_args, model in (
-            (res, "phase 5", FLAGSHIP_ARGS,
-             dict(name="resconvct-res", nchannels=1, nheight=28, z_dim=32,
-                  h_dim=512, n_dim=100, n_layers=1, nonlin="elu")),
-            (grad, "phase 5b", IMPLICIT_CONV_ARGS,
-             dict(name="mnist-conv", nchannels=1, nheight=28, z_dim=32,
-                  h_dim=0, n_dim=100, n_layers=0, nonlin="softplus"))):
-        launches.update({n: c for n, c in drive_line(
-            torch, dev, k, line_args, model, build_ivae_model, build_cdae, kernels,
-            what, card).items() if n in k["fn"].launches})
-        torch.cuda.empty_cache()
-
-    drive_heads(torch, dev, res, kernels, build_ivae_model, build_cdae, card)
+    drive_heads(torch, dev, res, kernels, card)
     drive_pipeline(torch, res, kernels, card)
     drive_baseline(torch, dev, kernels, card)
+    drive_toy_baseline(torch, dev, kernels, card)
+
+    def numbers(k, line, which):
+        (errs, med, work) = shapes[k["cdae"], line]
+        part = ("fwd", "bwd")[which]
+        flop, nbytes = (w[part] for w in work)
+        ops_ms, bytes_ms = 3 * flop / TF32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+        return {"max_abs_err": errs[which], "ms": med["kernel"][which],
+                "plain_ms": med["plain"][which], "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "library_ms": med["library"][which], "flop": flop,
+                "fp32_bound_ms": flop / FP32_FLOPS * 1e3}
 
     def entry(name, k, source, replaces, which):
-        m = med[k["cdae"]]
-        part = ("fwd", "bwd")[which]
-        flop, nbytes = (w[part] for w in work[k["cdae"]])
-        ops_ms, bytes_ms = 3 * flop / TF32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+        # the numbers of the kernel's first line; the other lines' beside them
+        first, *others = k["lines"]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
-                "max_abs_err": errs[k["cdae"]][which], "ms": m["kernel"][which],
-                "plain_ms": m["plain"][which], "bound_ms": max(ops_ms, bytes_ms),
-                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                "library_ms": m["library"][which], "flop": flop,
-                "launches_per_step": k["updates"],
-                "fp32_bound_ms": flop / FP32_FLOPS * 1e3}
+                **numbers(k, first, which), "launches_per_step": k["updates"],
+                **{f"at_{line}": numbers(k, line, which) for line in others}}
 
     grad_sites = ("ardae_tpu/ops/fused_dsm_grad.py:114 and "
                   "ardae_tpu/ops/fused_dsm_grad2.py:90")

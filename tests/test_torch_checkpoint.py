@@ -5,8 +5,8 @@ live file with malformed meta over a readable ``.tmp-save`` (where the JAX
 twin's rule let the temporary win, io/checkpoint.py:121), load_end_iter,
 and resume: 2 + 2 train_chunk steps with a save and a load into freshly
 built modules, optimizers and generator between them equal 4 uninterrupted
-steps bit for bit, for both ported implicit lines and for the baseline
-VAE, whose state has no cdae (its checkpoint leaves both out), at a tiny
+steps bit for bit, for the flagship, implicit-conv and 25-gaussians
+implicit lines and for the baseline VAE, whose state has no cdae (its checkpoint leaves both out), at a tiny
 width."""
 
 import os
@@ -174,19 +174,24 @@ def test_load_end_iter(tmp_path):
         load_end_iter(str(tmp_path), "final-checkpoint")
 
 
+MNIST = dict(nchannels=1, nheight=28)
 LINES = {
     "flagship": (dict(name="resconvct-res", z_dim=8, h_dim=16, n_dim=10,
-                      n_layers=1, nonlin="elu"), "mlp-res", 2, 100.0),
+                      n_layers=1, nonlin="elu", **MNIST), "mlp-res", 2, 100.0),
     "implicit-conv": (dict(name="mnist-conv", z_dim=8, h_dim=0, n_dim=10,
-                           n_layers=0, nonlin="softplus"), "mlp-grad", 1, 10000.0),
+                           n_layers=0, nonlin="softplus", **MNIST), "mlp-grad",
+                      1, 10000.0),
+    "25-gaussians": (dict(name="mlp-concat", z_dim=2, h_dim=16, n_dim=10,
+                          n_layers=2, nonlin="relu", nchannels=2, nheight=1),
+                     "mlp-grad", 1, 10000.0),
 }
 
 
 def _line_state(line, seed):
     model_kw, cdae_name, _, _ = LINES[line]
-    model = build_ivae_model(**model_kw, nchannels=1, nheight=28, seed=seed,
-                             device="cpu")
-    cdae = build_cdae(cdae_name, input_dim=8, context_dim=8, h_dim=16, n_layers=2,
+    model = build_ivae_model(**model_kw, seed=seed, device="cpu")
+    z = model_kw["z_dim"]
+    cdae = build_cdae(cdae_name, input_dim=z, context_dim=z, h_dim=16, n_layers=2,
                       nonlin="softplus", seed=seed + 1, device="cpu")
     return create_train_state(
         model, build_optimizer("adam", model.parameters(), 1e-3, beta1=0.9), cdae,
@@ -198,13 +203,16 @@ def test_resume_is_bitwise(tmp_path, line):
     _, _, updates, std_scale = LINES[line]
     cfg = StepConfig(std_scale=std_scale, delta=0.1, num_cdae_updates=updates,
                      train_nz_cdae=8, ctx_type="lt0", use_kernels=True)
-    data = torch.from_numpy(_synthetic_mnist(16, seed=3)[0])
+    toy = LINES[line][0]["nchannels"] == 2
+    data = torch.from_numpy(
+        np.random.default_rng(3).normal(size=(16, 2)).astype(np.float32) if toy
+        else _synthetic_mnist(16, seed=3)[0])
     rng = np.random.default_rng(4)
     c_idx, m_idx = rng.integers(0, 16, (4, updates, 4)), rng.integers(0, 16, (4, 4))
 
     def steps(state, gen, lo, hi):
         train_chunk(state, cfg, data, c_idx[lo:hi], m_idx[lo:hi], gen,
-                    lambda step: 1.0, binarize=True)
+                    lambda step: 1.0, binarize=not toy)
 
     full, g_full = _line_state(line, 0), torch.Generator().manual_seed(1)
     steps(full, g_full, 0, 4)

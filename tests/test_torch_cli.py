@@ -1,7 +1,9 @@
 """The port's driver, ardae_tpu_torch.cli.ivae_ardae, on the CPU (--no-cuda):
-2-step runs of the flagship line and of the implicit-conv line at a tiny
-width on dbmnist-val5k, of the flagship on sbMNIST, and of the four other
-resconv fc heads with --use-kernels; the whole pipeline
+2-step runs of the flagship line, the implicit-conv line and the
+mnist-concat line at a tiny width on dbmnist-val5k, of the flagship on
+sbMNIST, and of the four other resconv fc heads with --use-kernels; the
+25-gaussians line (mlp-concat) on 2,000 toy points with its final dump; the
+whole pipeline
 (val IWS eval, best and periodic checkpoints, the test eval from the best
 checkpoint, resume, final mode) on val and test splits cut to 64 items; and
 the flags and configs the port does not cover, which must raise."""
@@ -43,6 +45,27 @@ IMPLICIT_CONV = [
     "--max-iters", "2", "--log-interval", "1", "--eval-iws-interval", "0",
     "--ckpt-interval", "0", "--skip-final-test-eval", "--no-resume"]
 
+# the mnist-concat line (:47) at a tiny width: h 16, z 8, noise 10
+MNIST_CONCAT = list(IMPLICIT_CONV)
+for _flag, _value in (("--model", "mnist-concat"), ("--model-h-dim", "16"),
+                      ("--model-n-layers", "1"), ("--model-z-dim", "8"),
+                      ("--model-n-dim", "10")):
+    MNIST_CONCAT[MNIST_CONCAT.index(_flag) + 1] = _value
+
+# the 25-gaussians line (scripts/run_vae_25gaussians.sh) at a tiny width and
+# depth: h 16, bs 4, nz 8, 2,000 toy points
+TOY = [
+    "--dataset", "25gaussians", "--nheight", "1", "--nchannels", "2",
+    "--toy-train-size", "2000", "--model", "mlp-concat", "--model-z-dim", "2",
+    "--model-h-dim", "16", "--model-n-layers", "2", "--model-nonlin", "relu",
+    "--model-n-dim", "10", "--cdae", "mlp-grad", "--cdae-h-dim", "16",
+    "--cdae-n-layers", "3", "--cdae-nonlin", "softplus", "--cdae-ctx-type", "lt0",
+    "--train-batch-size", "4", "--train-nz-cdae", "8", "--delta", "0.1",
+    "--std-scale", "10000", "--m-optimizer", "adam", "--m-beta1", "0.5",
+    "--d-optimizer", "rmsprop", "--d-momentum", "0.5", "--iws-samples", "64",
+    "--max-iters", "2", "--log-interval", "1", "--eval-iws-interval", "0",
+    "--vis-interval", "0", "--ckpt-interval", "0", "--no-resume"]
+
 LOSSES = re.compile(r"loss \(vae\) (\S+) \| loss \(recon\) (\S+) \| "
                     r"loss \(prior\) (\S+) \| loss \(cdae\) (\S+)")
 
@@ -76,6 +99,37 @@ def test_implicit_conv_line_two_steps_on_cpu(tmp_path):
     _check_two_steps(state, path)
     assert isinstance(state.model, ConvIPVAE)
     assert state.cdae.score_type == "grad" and state.cdae.h_dim == 16
+
+
+def test_mnist_concat_line_two_steps_on_cpu(tmp_path):
+    from ardae_tpu_torch.models.ivae.mnist import MNISTIPVAE
+
+    state, path = ivae_ardae.run(_args(tmp_path, "--use-kernels",
+                                       base=MNIST_CONCAT))
+    _check_two_steps(state, path)
+    assert isinstance(state.model, MNISTIPVAE)
+    assert len(state.model.encode.inp_encode.layers) == 2  # n_layers + 1
+
+
+def test_toy_line_two_steps_and_final_dump(tmp_path):
+    """mlp-concat + mlp-grad on 25gaussians with --use-kernels, then the toy
+    final dump in place of the test eval: the 2,000 training points
+    reconstructed and as many generated, the heatmaps written."""
+    import numpy as np
+
+    from ardae_tpu_torch.models.ivae.toy import ToyIPVAE
+
+    state, path = ivae_ardae.run(_args(tmp_path, "--use-kernels", base=TOY))
+    _check_two_steps(state, path)
+    assert isinstance(state.model, ToyIPVAE)
+    assert _log(path, "dataset 25gaussians: generated from seed 20200616")
+    (dump,) = _log(path, "| toy dump")
+    assert "| rows 2000 | non-finite 0" in dump and not _log(path, "| test")
+    with np.load(os.path.join(path, "toy-dump.npz")) as z:
+        assert z["data_recon_gen"].shape == (500, 1500, 3)
+        assert z["gt_latent"].shape == (500, 1000, 3)
+        # every data point lies inside [-6, 6]^2
+        assert z["data_counts"].shape == (256, 256) and z["data_counts"].sum() == 2000
 
 
 @pytest.mark.parametrize("model,head", [
@@ -187,7 +241,7 @@ def test_use_kernels_on_uncovered_cdae_raises(tmp_path):
 
 def test_unported_model_raises(tmp_path):
     args = _args(tmp_path)
-    args[args.index("resconvct-res")] = "mnist-concat"
+    args[args.index("resconvct-res")] = "auxmnist"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ivae_ardae.run(args)
 

@@ -2,6 +2,8 @@
 (--no-cuda): 2-step runs of the three baseline lines of
 scripts/run_vae_dbmnist.sh (resconv :16, conv :22, mlp :28) at a tiny width
 (bs 4, z 4, mlp h 16) on dbmnist-val5k and of the resconv line on sbMNIST;
+the toy baseline on 2,000 25-gaussians points, with a val IWAE eval and the
+toy final dump;
 experiment names equal to the JAX driver's; the whole pipeline (val IWAE
 eval, best and periodic checkpoints, the test eval from the best
 checkpoint, resume, final mode) on val and test splits cut to 64 items; and
@@ -87,6 +89,34 @@ def test_experiment_name_matches_the_jax_driver(line):
             == jvae.derive_experiment(jvae.build_parser().parse_args(argv)))
 
 
+# the toy baseline on the 25-gaussians data at a tiny width (z 2, h 16, bs
+# 4), evaluated at iter 2 on the 500-point val split
+TOY = ["--dataset", "25gaussians", "--nheight", "1", "--nchannels", "2",
+       "--toy-train-size", "2000", "--model", "toy", "--model-z-dim", "2",
+       "--model-h-dim", "16", "--model-n-layers", "2", "--model-nonlin", "softplus",
+       "--train-batch-size", "4", "--optimizer", "adam", "--beta1", "0.5",
+       "--lr", "0.001", "--iws-samples", "8", "--max-iters", "2",
+       "--log-interval", "1", "--eval-iws-interval", "2", "--vis-interval", "0",
+       "--ckpt-interval", "0", "--no-resume", "--no-cuda"]
+
+
+def test_toy_two_steps_and_final_dump(tmp_path):
+    from ardae_tpu_torch.models.vae.toy import ToyVAE
+
+    state, path = vae.run(TOY + ["--cache", str(tmp_path / "exp"),
+                                 "--data-root", str(tmp_path / "data")])
+    assert state.step == 2 and isinstance(state.model, ToyVAE)
+    for ln in _log(path, "| iter "):
+        loss, recon, kld, elbo = map(float, LOSSES.search(ln).groups())
+        # the loss scaled by 1 / (C * H * W) = 1 / 2 at beta 1
+        assert abs(loss - (recon + kld) / 2) <= 1e-5 * abs(loss)
+    (val,) = _log(path, "| val")
+    assert all(math.isfinite(float(v)) for v in BOUNDS.search(val).groups())
+    (dump,) = _log(path, "| toy dump")
+    assert "| rows 2000 | non-finite 0" in dump and not _log(path, "| test")
+    assert os.path.exists(os.path.join(path, "toy-dump.npz"))
+
+
 EVAL = ["--max-iters", "4", "--log-interval", "2", "--eval-iws-interval", "2",
         "--ckpt-interval", "2", "--eval-batch-size", "16"]
 BOUNDS = re.compile(r"elbo (\S+) \| logprob \(iws\) (\S+)")
@@ -139,9 +169,10 @@ def test_pipeline_eval_checkpoints_resume_and_final_mode(tmp_path, small_splits)
     (["--dp-devices", "2"], "dp-devices.*slice 7"),
     (["--weight-avg", "polyak"], "weight-avg.*slice 6"),
     (["--model", "auxresconv"], "aux.*slice 5"),
-    (["--model", "toy"], "toy.*slice 4"),
+    (["--model", "auxtoy"], "aux.*slice 5"),
     (["--model", "toy-maf"], "toy-maf.*slice 6"),
-    (["--dataset", "25gaussians"], "toy.*slice 4"),
+    (["--dataset", "25gaussians", "--model", "toy", "--vis-interval", "1"],
+     "visualization.*slice 6"),
 ])
 def test_unsupported_flags_raise(tmp_path, extra, what):
     with pytest.raises(NotImplementedError, match=what):

@@ -109,6 +109,5 @@ def test_real_idx_files_identical(tmp_path):
 
 
 def test_unported_datasets_raise():
-    for name in ("25gaussians", "mnist32"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_get(name)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_get("mnist32")

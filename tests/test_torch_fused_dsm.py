@@ -5,8 +5,8 @@ Pallas kernel in interpret mode (as tests/test_fused_dsm.py runs it) and
 against jax.value_and_grad of cardae.cdae_loss, loss and every parameter
 gradient at rtol 2e-4 / atol 1e-6 (the bound of tests/test_fused_dsm.py).
 The DSM noise is drawn by jax.random from the JAX call's key and injected.
-The CUDA kernel itself is held against the plain version on the card
-(marked ``cuda``; skipped without a GPU, and by chip_smoke.py).
+The CUDA kernel itself is held against the plain version on the card by
+tests/test_torch_kernels_cuda.py and chip_smoke.py.
 """
 
 import jax
@@ -19,7 +19,6 @@ from ardae_tpu.models.cdae import cdae_loss as j_cdae_loss
 from ardae_tpu.ops.fused_dsm import fused_cdae_dsm_loss as j_fused
 from ardae_tpu_torch.models.cdae.cardae import MLPGradCARDAE as TGrad
 from ardae_tpu_torch.models.cdae.cardae import MLPResCARDAE as TRes
-from ardae_tpu_torch.models.registry import build_cdae
 from ardae_tpu_torch.ops import fused_dsm as fd
 from torch_parity import close, grads_as_state_dict, init, loaded, rand, t
 
@@ -111,27 +110,3 @@ def test_guard():
     flagship = TRes(32, 32, 512, 5, "softplus")
     assert fd.supports_fused_dsm(flagship, 128 * 625)
     assert not fd.supports_fused_dsm(flagship, 2_000_000)
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU; chip_smoke.py runs this comparison")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    tm = build_cdae("mlp-res", input_dim=5, context_dim=6, h_dim=24, n_layers=2,
-                    nonlin="softplus", device=dev)
-    g = torch.Generator(device=dev).manual_seed(0)
-    latent = torch.randn(3, 37, 5, generator=g, device=dev)
-    ctx = torch.randn(3, 6, generator=g, device=dev)
-    std = 0.3 * torch.randn(3, 37, 1, generator=g, device=dev).abs()
-    eps = torch.randn(3 * 37, 5, generator=g, device=dev)
-    before = fd.FusedDSMFunction.launches["fused_dsm_fwd"]
-    a = fd.fused_cdae_dsm_loss(tm, latent, ctx, std, eps=eps)
-    ga = torch.autograd.grad(a, list(tm.parameters()))
-    b = fd.fused_cdae_dsm_loss_reference(tm, latent, ctx, std, eps=eps)
-    gb = torch.autograd.grad(b, list(tm.parameters()))
-    assert fd.FusedDSMFunction.launches["fused_dsm_fwd"] == before + 1
-    torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
-    for x, y in zip(ga, gb):
-        assert float((x - y).norm() / y.norm()) <= 1e-4

@@ -57,9 +57,9 @@ def test_resconv_baseline_centres_as_the_jax_registry(name, center):
 
 
 @pytest.mark.parametrize("build,name,slice_", [
-    (build_vae_model, "toy", "slice 4"), (build_vae_model, "toy-maf", "slice 6"),
+    (build_vae_model, "auxtoy", "slice 5"), (build_vae_model, "toy-maf", "slice 6"),
     (build_vae_model, "auxmnist", "slice 5"),
-    (build_ivae_model, "mnist-concat", "slice 4"),
+    (build_ivae_model, "auxmlp", "slice 5"),
     (build_ivae_model, "auxresconvct", "slice 5")])
 def test_unported_models_raise_naming_their_slice(build, name, slice_):
     with pytest.raises(NotImplementedError, match=slice_):

@@ -105,10 +105,10 @@ def test_unported_families_raise():
     class Aux(torch.nn.Module):
         family, likelihood = "aux_gaussian_posterior", "bernoulli"
 
-    class Toy(torch.nn.Module):
-        family, likelihood = "gaussian_posterior", "gaussian"
+    class Maf(torch.nn.Module):
+        family, likelihood = "flow_posterior", "gaussian"
 
     with pytest.raises(NotImplementedError, match="slice 5"):
         tapi.vae_loss(Aux(), torch.zeros(1, 2))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tapi.logprob_iwae(Toy(), torch.zeros(1, 2), 2)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        tapi.logprob_iwae(Maf(), torch.zeros(1, 2), 2)
