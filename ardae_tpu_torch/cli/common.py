@@ -345,8 +345,9 @@ def evaluate_iws_ivae(model, eval_data, iws_samples, generator=None,
     math; None picks ``default_eval_batch(iws_samples)`` items. The tail
     batch is simply shorter. A dynamically binarized split draws each
     batch's pixels anew. ``draws``: optional per-batch list of {"bin": (nv,
-    D) uniforms, "eps": (nv*ssz, noise_dim), "new_eps": (nv, ssz, z_dim)};
-    otherwise every draw comes from ``generator``."""
+    D) uniforms, "eps": (nv*ssz, noise_dim) (an aux model's pair),
+    "new_eps": (nv, ssz, z_dim)}; otherwise every draw comes from
+    ``generator``. The aux models take ``jitter`` 1e-5."""
     from ardae_tpu_torch.models.ivae.api import logprob_iws
 
     sums = []
@@ -366,10 +367,12 @@ def evaluate_iwae_vae(model, eval_data, iws_samples, generator=None,
     """(elbo, logprob) of a baseline VAE over an eval split, each the mean
     of its per-item values (reference vae.py:345-377), without autograd:
     the exact-q IWAE bound and -vae_loss at beta 1, each from its own
-    draws. Batching as in ``evaluate_iws_ivae``. ``draws``: optional
-    per-batch list of {"bin": (nv, D) uniforms, "iwae_eps": (nv, ssz,
-    z_dim), "elbo_eps": (nv, z_dim)}; otherwise every draw comes from
-    ``generator``, in that order."""
+    draws; an aux model's are the hierarchical IWAE and the aux ELBO (the
+    API hands them on). Batching as in ``evaluate_iws_ivae``. ``draws``:
+    optional per-batch list of {"bin": (nv, D) uniforms, "iwae_eps": (nv,
+    ssz, z_dim), "elbo_eps": (nv, z_dim)} (an aux model's: pairs, the
+    IWAE's (nv*ssz, noise_dim) and (nv*ssz, z_dim)); otherwise every draw
+    comes from ``generator``, in that order."""
     from ardae_tpu_torch.models.vae.api import logprob_iwae, vae_loss
 
     lps, losses = [], []

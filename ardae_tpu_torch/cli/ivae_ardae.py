@@ -2,13 +2,17 @@
 
 The whole reference flag surface parses (reference ivae_ardae.py:32-196),
 and ``--model`` also takes resconv-res3 / resconv-res4, which the JAX
-registry builds. The port trains every resconv model (the five fc heads,
-centred or not; the flagship line is resconvct-res), the implicit-conv
-line (mnist-conv, which takes ``--model-h-dim 0 --model-n-layers 0``) and
-mnist-concat, each with an mlp-res or mlp-grad cdae on the MNIST family and
-sbMNIST, and mlp-concat on the toy datasets (swissroll, 25gaussians; a
-Gaussian likelihood); ``--use-kernels`` sends phase A to the hand-written
-fused DSM kernel of the cdae's style. The whole pipeline runs: train, the
+registry builds. The port trains every model name: the resconv models
+(the five fc heads, centred or not; the flagship line is resconvct-res),
+the implicit-conv line (mnist-conv, which takes ``--model-h-dim 0
+--model-n-layers 0``), mnist-concat and the hierarchical aux models
+(auxmnist, auxconv, auxresconv(ct) and their -clip twins; their cdae may
+take the ``hidden1a`` context, the encoder's std-0 features, and the IWS
+eval adds a covariance jitter of 1e-5), each with an mlp-res or mlp-grad
+cdae on the MNIST family and sbMNIST, and mlp-concat and auxmlp on the toy
+datasets (swissroll, 25gaussians; a Gaussian likelihood); ``--use-kernels``
+sends phase A to the hand-written fused DSM kernel of the cdae's style.
+The whole pipeline runs: train, the
 val IWS eval every ``--eval-iws-interval`` steps with ``best-checkpoint``
 on improvement, ``checkpoint`` every ``--ckpt-interval`` steps, resume
 from it, ``--train-mode final`` (train+val up to the best checkpoint's
@@ -253,8 +257,8 @@ def run(argv=None):
                       device=device)
     logging(f"model params: {sum(p.numel() for p in model.parameters()):,}",
             path=opt.path)
-    logging(f"cdae params: {sum(p.numel() for p in cdae.parameters()):,}",
-            path=opt.path)
+    logging(f"cdae params: {sum(p.numel() for p in cdae.parameters()):,} | "
+            f"context {opt.cdae_ctx_type}, {ctx_dim} wide", path=opt.path)
 
     # reference quirk: the model's rmsprop takes d_momentum (ivae_ardae.py:554)
     opt_m = build_optimizer(opt.m_optimizer, model.parameters(), opt.m_lr,
@@ -290,11 +294,14 @@ def run(argv=None):
         return train_chunk(state, cfg, data_dev, c_idx, m_idx, generator,
                            beta_fn, binarize=binarize)
 
+    # the aux models' covariance jitter (JAX cli/ivae_ardae.py:408)
+    jitter = 1e-5 if model.family == "aux" else 0.0
+
     def evaluate(split, tag):
         logprob = evaluate_iws_ivae(
             state.model, splits[split], opt.iws_samples,
             eval_generator(opt.seed, tag, device), binarize=binarize,
-            batch=opt.eval_batch_size)
+            batch=opt.eval_batch_size, jitter=jitter)
         return [("logprob (iws)", "logprob/iws", logprob)]
 
     def log_train(i_ep, m):

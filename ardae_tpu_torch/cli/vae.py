@@ -3,8 +3,10 @@ ardae_tpu/cli/vae.py; reference vae.py).
 
 The whole flag surface parses (reference vae.py:28-127) and experiment
 names match the JAX driver's. The port trains the MNIST-family baselines
-``mnist``, ``conv``, ``resconv`` and ``resconvct`` on the MNIST family and
-sbMNIST, and ``toy`` on the toy datasets (swissroll, 25gaussians; a
+``mnist``, ``conv``, ``resconv`` and ``resconvct`` and their hierarchical
+twins ``auxmnist``, ``auxconv``, ``auxresconv`` and ``auxresconvct`` (the
+aux ELBO and IWAE, models/vae/aux.py) on the MNIST family and sbMNIST, and
+``toy`` and ``auxtoy`` on the toy datasets (swissroll, 25gaussians; a
 Gaussian likelihood): one optimizer, the loss scaled by 1/(C*H*W) before
 the backward, beta annealing, and the whole pipeline: train, the val IWAE
 eval (exact q) every ``--eval-iws-interval`` steps with ``best-checkpoint``
@@ -127,8 +129,6 @@ def _unsupported_flags(opt):
     out = []
     if opt.model == "toy-maf":
         out.append(f"toy-maf: {_Q}slice 6 item 14")
-    elif opt.model.startswith("aux"):
-        out.append(f"--model {opt.model} (hierarchical aux): {_Q}slice 5 item 13")
     if opt.weight_avg != "none":
         out.append(f"--weight-avg {opt.weight_avg}: {_Q}slice 6 item 14")
     if opt.model_compute_dtype == "bfloat16":

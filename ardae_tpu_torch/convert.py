@@ -15,7 +15,9 @@ or without the top ``"params"`` level) into the port module's
   * the two NHWC reshapes of each conv stack become NCHW: the layer after
     the trunk takes the (32, s, s) features in NCHW order (columns
     permuted: the resconv trunk's fc, the conv IVAE's fc4_inp, the conv
-    baseline's enc_fc) and the
+    baseline's enc_fc, the aux conv models' aux_fc; of enc_fc and
+    auxdec_fc of the aux conv models, which take cat(trunk features, z0 or
+    z), only the trunk's leading columns) and the
     decoder layer before the first conv emits them in NCHW order (rows,
     scales and biases permuted: the resconv decoder's fc1, the conv
     decoder's fc.fc).
@@ -38,8 +40,11 @@ def _nhwc_to_nchw_perm(c, hgt, wid):
 
 def _perm_rules(module):
     """{torch key prefix: ('in' | 'out', perm)} for the NHWC sites of the
-    resconv and conv stacks."""
+    resconv and conv stacks; an 'in' perm shorter than the layer's input
+    permutes its leading columns."""
+    from ardae_tpu_torch.models.ivae.aux import MNISTConvAuxIPVAE
     from ardae_tpu_torch.models.ivae.conv import ConvIPVAE
+    from ardae_tpu_torch.models.vae.aux import MNISTConvAuxVAE
     from ardae_tpu_torch.models.vae.conv import ConvDecoder, MNISTConvVAE
     from ardae_tpu_torch.models.vae.resconv import ResConvDecoder, ResConvTrunk
 
@@ -57,6 +62,11 @@ def _perm_rules(module):
             s = m.trunk.s
             site = "fc4_inp" if isinstance(m, ConvIPVAE) else "enc_fc"
             rules[f"{pre}{site}."] = ("in", _nhwc_to_nchw_perm(32, s, s))
+        elif isinstance(m, (MNISTConvAuxIPVAE, MNISTConvAuxVAE)):
+            p = _nhwc_to_nchw_perm(32, m.aux_trunk.s, m.aux_trunk.s)
+            for site in ("aux_fc", "enc_fc", "auxdec_fc"):
+                if hasattr(m, site):
+                    rules[f"{pre}{site}."] = ("in", p)
         elif isinstance(m, ConvDecoder):
             rules[f"{pre}fc.fc."] = ("out", _nhwc_to_nchw_perm(32, m.s, m.s))
     return rules
@@ -107,7 +117,7 @@ def _apply_rule(key, a, rules, inverse):
             continue
         p = np.argsort(perm) if inverse else perm
         if side == "in" and a.ndim == 2:
-            return a[:, p]
+            return a[:, np.concatenate([p, np.arange(len(p), a.shape[1])])]
         if side == "out":
             return a[p]
     return a

@@ -1,9 +1,7 @@
 """ELBO building blocks (JAX twin: ardae_tpu/core/losses.py).
 
 ``reduce='sum'`` sums every element, ``reduce='per_item'`` sums all non-batch
-axes (axis 0 is the batch), ``reduce='none'`` returns the elements. The
-Gaussian-vs-Gaussian KLD and the entropy term wait for the aux slice
-(ROADMAP queue 1, slice 5).
+axes (axis 0 is the batch), ``reduce='none'`` returns the elements.
 """
 
 import math
@@ -53,6 +51,22 @@ def loss_kld_gaussian(mu, logvar, reduce: str = "per_item"):
     """KL( N(mu, e^logvar) || N(0, I) ) (reference utils/vae.py:78-92)."""
     elem = 1.0 + logvar - mu ** 2 - torch.exp(logvar)
     return -0.5 * _reduce(elem, reduce)
+
+
+def loss_kld_gaussian_vs_gaussian(mu1, logvar1, mu2, logvar2,
+                                  reduce: str = "per_item"):
+    """KL( N(mu1, e^logvar1) || N(mu2, e^logvar2) ) (reference
+    utils/vae.py:94-114): the KL(q(z0|x) || r(z0|x,z)) term of the aux
+    baselines."""
+    elem = (-logvar2 + logvar1
+            - (torch.exp(logvar1) + (mu1 - mu2) ** 2) / torch.exp(logvar2) + 1.0)
+    return -0.5 * _reduce(elem, reduce)
+
+
+def loss_entropy_gaussian(logvar, reduce: str = "per_item"):
+    """Negative differential entropy terms of a diagonal Gaussian
+    (reference utils/stat.py:17-28)."""
+    return 0.5 * _reduce(logvar + 1.0 + _LOG_2PI, reduce)
 
 
 def iwae_bound(logw, dim: int = -1, eps: float = 1e-10):

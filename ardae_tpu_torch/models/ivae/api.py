@@ -7,7 +7,10 @@ queue 1, slice 6).
 
 Every sampler takes an optional injected noise tensor (``eps=``, ``u=``)
 and otherwise draws from an explicit ``torch.Generator``; z always comes
-back (bsz, nz, z_dim).
+back (bsz, nz, z_dim). A flat model's encoder noise is one tensor
+(bsz*nz, noise_dim), scaled here by ``noise_std``; a hierarchical one's
+(``family == "aux"``, models/ivae/aux.py) is the pair (eps0 (bsz*nz,
+noise_dim), eps (bsz*nz, z_dim)), which the model scales itself.
 """
 
 import torch
@@ -25,28 +28,53 @@ from ardae_tpu_torch.core.stats import covmat, logprob_gaussian, mvn_logprob
 
 def make_eps(module, bsz, nz, noise_std=None, generator=None, eps=None,
              device=None):
-    """The encoder's noise inputs, (bsz*nz, noise_dim), scaled by noise_std."""
-    scale = 1.0 if noise_std is None else noise_std
+    """The encoder's noise inputs: (bsz*nz, noise_dim) scaled by noise_std,
+    or an aux model's unscaled pair (eps0, eps), eps0 drawn first."""
+    aux = module.family == "aux"
     if eps is None:
         if generator is None:
             raise ValueError("make_eps needs a generator or an injected eps")
-        eps = torch.randn((bsz * nz, module.noise_dim), generator=generator,
-                          device=device if device is not None else generator.device)
-    return scale * eps
+        dev = device if device is not None else generator.device
+        widths = (module.noise_dim, module.z_dim) if aux else (module.noise_dim,)
+        draws = tuple(torch.randn((bsz * nz, w), generator=generator, device=dev)
+                      for w in widths)
+        eps = draws if aux else draws[0]
+    if aux:
+        return tuple(eps)
+    return (1.0 if noise_std is None else noise_std) * eps
 
 
 def sample_latents(module, x, nz, noise_std=None, generator=None, eps=None):
     """forward_hidden: z ~ q(z|x), (bsz, nz, z_dim)."""
     eps = make_eps(module, x.shape[0], nz, noise_std, generator, eps,
                    device=x.device)
+    if module.family == "aux":
+        return module.sample_z(x, tuple(e.to(x.dtype) for e in eps), noise_std)
     return module.sample_z(x, eps.to(x.dtype))
 
 
+def _zero_eps(module, x):
+    zeros = lambda w: torch.zeros((x.shape[0], w), dtype=x.dtype, device=x.device)
+    if module.family == "aux":
+        return (zeros(module.noise_dim), zeros(module.z_dim))
+    return zeros(module.noise_dim)
+
+
 def encode_det(module, x):
-    """encode(x, std=0): deterministic latent, (bsz, 1, z_dim)."""
-    eps = torch.zeros((x.shape[0], module.noise_dim), dtype=x.dtype,
-                      device=x.device)
-    return module.sample_z(x, eps)
+    """encode(x, std=0): deterministic latent, (bsz, 1, z_dim); an aux
+    model takes the noise scale 0.0 (None would mean 1)."""
+    if module.family == "aux":
+        return module.sample_z(x, _zero_eps(module, x), 0.0)
+    return module.sample_z(x, _zero_eps(module, x))
+
+
+def encode_hidden_feats(module, x):
+    """The hidden1a context at std 0, (bsz, context width): aux models only
+    (the reference crashes for a flat model too: ivae_ardae.py:738 calls a
+    method that only the aux encoders define)."""
+    if module.family != "aux":
+        raise NotImplementedError("hidden1a context requires an aux model")
+    return module.hidden_feats(x, _zero_eps(module, x), 0.0)
 
 
 def recon_loss_fn(module, dist_params, target_flat):
@@ -115,8 +143,8 @@ def generate(module, batch_size, generator=None, eps=None, u=None):
 
 def reconstruct(module, x, generator=None, eps=None, u=None):
     """x -> one z ~ q(z|x) -> x sample: (x sample, x mean or probabilities,
-    z (bsz, z_dim)). ``eps``: the encoder's noise (bsz, noise_dim); ``u`` the
-    decoder sample's noise."""
+    z (bsz, z_dim)). ``eps``: the encoder's noise (bsz, noise_dim), or an
+    aux model's pair; ``u`` the decoder sample's noise."""
     z = sample_latents(module, x, 1, generator=generator, eps=eps)
     z_flat = z.reshape(x.shape[0], -1)
     return (*decode_sample(module, z_flat, generator, u), z_flat)
@@ -129,9 +157,11 @@ def logprob_iws(module, x, sample_size, jitter=0.0, noise_std=None,
     fit N(mu, cov), which is re-sampled and importance-weighted, the batch
     in one Cholesky, one triangular solve and one decode. Needs
     sample_size >= 2*z_dim for a full-rank covariance. ``eps`` is the
-    encoder's noise (bsz*ssz, noise_dim) and ``new_eps`` the re-sample
-    noise (bsz, ssz, z_dim); each is drawn from ``generator`` when not
-    given, the encoder's first."""
+    encoder's noise (bsz*ssz, noise_dim; an aux model's pair) and
+    ``new_eps`` the re-sample noise (bsz, ssz, z_dim); each is drawn from
+    ``generator`` when not given, the encoder's first. The aux models are
+    evaluated with ``jitter`` 1e-5 (reference models/ivae/auxmnist.py:
+    297-357)."""
     z = sample_latents(module, x, sample_size, noise_std, generator, eps)
     per_item = cov_gaussian_iws_from_draws(module, x, z, jitter, generator,
                                            new_eps)

@@ -1,19 +1,33 @@
 """Model factories keyed by the reference CLI names (JAX twin:
-ardae_tpu/models/registry.py). The port builds the implicit VAEs
-``mlp-concat``, ``mnist-concat``, ``mnist-conv`` and all ten resconv names,
-both cdae styles, and the baseline VAEs ``toy``, ``mnist``, ``conv``,
-``resconv`` and ``resconvct``; every other name raises NotImplementedError
-naming the ROADMAP item that ports it. Every build function puts the module
+ardae_tpu/models/registry.py). The port builds every implicit VAE name
+(``mlp-concat``, ``mnist-concat``, ``mnist-conv``, the ten resconv names
+and the seven aux ones), both cdae styles, and every baseline VAE name but
+``toy-maf`` (``toy``, ``mnist``, ``conv``, ``resconv(ct)`` and the aux
+``auxtoy``, ``auxmnist``, ``auxconv``, ``auxresconv(ct)``); ``toy-maf`` and
+``--cdae mlp`` raise NotImplementedError naming their ROADMAP item. Every build function puts the module
 on the card unless the caller asks for the CPU (``device="cpu"``); without
 a card that default raises rather than falling back."""
 
 import torch
 
 from ardae_tpu_torch.models.cdae.cardae import MLPGradCARDAE, MLPResCARDAE
+from ardae_tpu_torch.models.ivae.aux import (
+    CONV_FC,
+    MNISTAuxIPVAE,
+    MNISTConvAuxIPVAE,
+    MNISTResConvAuxIPVAE,
+    ToyAuxIPVAE,
+)
 from ardae_tpu_torch.models.ivae.conv import ConvIPVAE
 from ardae_tpu_torch.models.ivae.mnist import MNISTIPVAE
 from ardae_tpu_torch.models.ivae.resconv import ResConvIPVAE
 from ardae_tpu_torch.models.ivae.toy import ToyIPVAE
+from ardae_tpu_torch.models.vae.aux import (
+    MNISTAuxVAE,
+    MNISTConvAuxVAE,
+    MNISTResConvAuxVAE,
+    ToyAuxVAE,
+)
 from ardae_tpu_torch.models.vae.conv import MNISTConvVAE
 from ardae_tpu_torch.models.vae.mnist import MNISTVAE
 from ardae_tpu_torch.models.vae.resconv import MNISTResConvVAE
@@ -29,6 +43,8 @@ _RESCONV_ENC = {  # name -> (fc head, do_center)
     "resconv-res4": ("res-mlp-lin", False), "resconvct-res4": ("res-mlp-lin", True),
 }
 
+AUX_RESCONV_C = 450  # the aux resconv trunk's context width (JAX registry)
+
 _Q = "ROADMAP queue 1, "
 _LATER = {
     "toy-maf": _Q + "slice 6 (item 14, nn/made.py + models/vae/maf.py)",
@@ -39,11 +55,14 @@ _LATER = {
 }
 
 
+# auxresconv(ct)(-clip): (do_center, clipped), as the JAX registry builds them
+_AUX_RESCONV = {"auxresconv": (False, False), "auxresconvct": (True, False),
+                "auxresconv-clip": (False, True), "auxresconvct-clip": (True, True)}
+
+
 def _later(name):
     if name in _LATER:
         return _LATER[name]
-    if name.startswith("aux"):
-        return _Q + "slice 5 (item 13, hierarchical aux)"
     raise NotImplementedError(f"unknown model: {name!r}")
 
 
@@ -54,17 +73,30 @@ def _init(module, seed, device):
 
 def build_ivae_model(name, *, nchannels=2, nheight=1, z_dim=2, h_dim=128,
                      n_dim=2, n_layers=2, nonlin="relu", seed=0, device="cuda"):
-    """The implicit VAE ``name``, parameters drawn from ``seed``. mnist-conv
-    has fixed widths: ``h_dim`` and ``n_layers`` are not read."""
-    concat = {"mlp-concat": ToyIPVAE, "mnist-concat": MNISTIPVAE}
-    if name in concat:
-        model = concat[name](input_dim=nchannels * nheight * nheight,
-                             noise_dim=n_dim, h_dim=h_dim, z_dim=z_dim,
-                             nonlinearity=nonlin, num_hidden_layers=n_layers)
+    """The implicit VAE ``name``, parameters drawn from ``seed``. mnist-conv,
+    auxconv and the aux resconv models have fixed widths: ``h_dim`` and
+    ``n_layers`` are not read (an aux model's ``n_dim`` is its z0 width)."""
+    mlp = {"mlp-concat": ToyIPVAE, "mnist-concat": MNISTIPVAE,
+           "auxmlp": ToyAuxIPVAE, "auxmnist": MNISTAuxIPVAE}
+    if name in mlp:
+        model = mlp[name](input_dim=nchannels * nheight * nheight,
+                          noise_dim=n_dim, h_dim=h_dim, z_dim=z_dim,
+                          nonlinearity=nonlin, num_hidden_layers=n_layers)
         return _init(model, seed, device)
     if name == "mnist-conv":
         model = ConvIPVAE(input_height=nheight, input_channels=nchannels,
                           z_dim=z_dim, noise_dim=n_dim, nonlinearity=nonlin)
+        return _init(model, seed, device)
+    if name == "auxconv":
+        model = MNISTConvAuxIPVAE(input_height=nheight, input_channels=nchannels,
+                                  z0_dim=n_dim, z_dim=z_dim, nonlinearity=nonlin)
+        return _init(model, seed, device)
+    if name in _AUX_RESCONV:
+        do_center, clipped = _AUX_RESCONV[name]
+        model = MNISTResConvAuxIPVAE(
+            input_height=nheight, input_channels=nchannels, z0_dim=n_dim,
+            z_dim=z_dim, c_dim=AUX_RESCONV_C, nonlinearity=nonlin,
+            do_center=do_center, clipped=clipped)
         return _init(model, seed, device)
     if name not in _RESCONV_ENC:
         raise NotImplementedError(
@@ -80,10 +112,12 @@ def build_ivae_model(name, *, nchannels=2, nheight=1, z_dim=2, h_dim=128,
 def build_vae_model(name, *, nchannels=1, nheight=28, z_dim=8, h_dim=300,
                     n_dim=0, n_layers=1, nonlin="softplus", clip_logvar="none",
                     seed=0, device="cuda"):
-    """The baseline VAE ``name``, parameters drawn from ``seed``. conv and
-    resconv have fixed widths: ``h_dim`` and ``n_layers`` are not read, nor
-    are ``n_dim`` and ``clip_logvar`` by any ported model. ``resconvct``
-    centres its input and ``resconv`` does not, as in the JAX registry (the
+    """The baseline VAE ``name``, parameters drawn from ``seed``. The conv
+    and resconv models (aux or not) have fixed widths: ``h_dim`` and
+    ``n_layers`` are not read. ``n_dim`` is an aux model's z0 width;
+    ``clip_logvar`` clips auxtoy's and auxmnist's z0 head (auxresconv's two
+    heads always carry spm4). ``resconvct`` and ``auxresconvct`` centre
+    their input and the others do not, as in the JAX registry (the
     reference driver centres neither, vae.py:233-249)."""
     if name == "toy":
         model = ToyVAE(input_dim=nchannels * nheight * nheight, h_dim=h_dim,
@@ -99,6 +133,19 @@ def build_vae_model(name, *, nchannels=1, nheight=28, z_dim=8, h_dim=300,
         model = MNISTResConvVAE(input_height=nheight, input_channels=nchannels,
                                 z_dim=z_dim, nonlinearity=nonlin,
                                 do_center=name.endswith("ct"))
+    elif name in ("auxtoy", "auxmnist"):
+        make = ToyAuxVAE if name == "auxtoy" else MNISTAuxVAE
+        model = make(input_dim=nchannels * nheight * nheight, noise_dim=n_dim,
+                     h_dim=h_dim, z_dim=z_dim, nonlinearity=nonlin,
+                     num_hidden_layers=n_layers, clip_logvar=clip_logvar)
+    elif name == "auxconv":
+        model = MNISTConvAuxVAE(input_height=nheight, input_channels=nchannels,
+                                z0_dim=n_dim, z_dim=z_dim, nonlinearity=nonlin)
+    elif name in ("auxresconv", "auxresconvct"):
+        model = MNISTResConvAuxVAE(input_height=nheight, input_channels=nchannels,
+                                   z0_dim=n_dim, z_dim=z_dim, c_dim=AUX_RESCONV_C,
+                                   nonlinearity=nonlin,
+                                   do_center=name.endswith("ct"))
     else:
         raise NotImplementedError(
             f"vae model {name!r} is not ported yet: {_later(name)}")
@@ -112,9 +159,13 @@ def context_dim_for(ctx_type, *, model_name, nchannels, nheight, z_dim, h_dim):
     if ctx_type == "lt0":
         return z_dim
     if ctx_type == "hidden1a":
-        raise NotImplementedError(
-            "hidden1a context is not ported yet: ROADMAP queue 1, slice 5 "
-            "(item 13, hierarchical aux)")
+        if model_name in ("auxmlp", "auxmnist"):
+            return 2 * h_dim
+        if model_name == "auxconv":
+            return 2 * CONV_FC
+        if model_name in _AUX_RESCONV:
+            return AUX_RESCONV_C
+        return h_dim
     raise NotImplementedError(ctx_type)
 
 

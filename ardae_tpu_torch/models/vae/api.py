@@ -7,8 +7,11 @@ Every function takes its noise injected (``eps=`` for the posterior or prior
 draw, ``u=`` for the decoder's sample) or draws it from an explicit
 ``torch.Generator``. The ``gaussian_posterior`` family is ported, with a
 Bernoulli or a Gaussian likelihood (the decoder sample and the likelihood
-are the implicit models', models/ivae/api.py); the other families raise
-naming their ROADMAP item.
+are the implicit models', models/ivae/api.py), and the hierarchical
+``aux_gaussian_posterior`` one: ``vae_loss`` and ``logprob_iwae`` hand it to
+``aux_vae_loss`` / ``aux_logprob_iwae`` (models/vae/aux.py), as the JAX
+drivers pick them, and its ``eps`` is the pair (eps0, eps); the flow
+family raises naming its ROADMAP item.
 """
 
 import torch
@@ -17,11 +20,10 @@ from ardae_tpu_torch.core.losses import iwae_bound, loss_kld_gaussian, reduce_ba
 from ardae_tpu_torch.core.rng import sample_gaussian
 from ardae_tpu_torch.core.stats import logprob_gaussian
 from ardae_tpu_torch.models.ivae import api as ivae_api
+from ardae_tpu_torch.models.vae import aux
 
-_LATER = {
-    "flow_posterior": "slice 6 (item 14, the MAF posterior of toy-maf)",
-    "aux_gaussian_posterior": "slice 5 (item 13, hierarchical aux)",
-}
+AUX = "aux_gaussian_posterior"
+_LATER = {"flow_posterior": "slice 6 (item 14, the MAF posterior of toy-maf)"}
 
 
 def _check(module):
@@ -36,6 +38,8 @@ def vae_loss(module, x, beta=1.0, reduce="mean", generator=None, eps=None):
     ``reduce='per_item'``. ``eps``: the posterior draw, (bsz, z_dim).
     Returns (loss, {"recon", "kld": batch means, "z"})."""
     _check(module)
+    if module.family == AUX:
+        return aux.aux_vae_loss(module, x, beta, reduce, generator, eps)
     mu, logvar = module.encode_params(x)
     z = sample_gaussian(mu, logvar, generator, eps)
     kld = loss_kld_gaussian(mu, logvar, reduce="per_item")
@@ -52,10 +56,14 @@ def generate(module, batch_size, generator=None, eps=None, u=None):
 
 
 def reconstruct(module, x, generator=None, eps=None, u=None):
-    """x -> z ~ q(z|x) -> x sample: (x sample, x mean or probabilities, z)."""
+    """x -> z ~ q(z|x) -> x sample: (x sample, x mean or probabilities, z);
+    an aux model draws z0, then z."""
     _check(module)
-    mu, logvar = module.encode_params(x)
-    z = sample_gaussian(mu, logvar, generator, eps)
+    if module.family == AUX:
+        z = aux.encode_sample(module, module.trunk_feats(x), generator, eps)[-1]
+    else:
+        mu, logvar = module.encode_params(x)
+        z = sample_gaussian(mu, logvar, generator, eps)
     return (*ivae_api.decode_sample(module, z, generator, u), z)
 
 
@@ -63,6 +71,8 @@ def logprob_iwae(module, x, sample_size, reduce="mean", generator=None, eps=None
     """IWAE bound with the exact Gaussian q, per item or its mean. ``eps``:
     the posterior draws, (bsz, sample_size, z_dim)."""
     _check(module)
+    if module.family == AUX:
+        return aux.aux_logprob_iwae(module, x, sample_size, reduce, generator, eps)
     bsz = x.shape[0]
     mu_qz, logvar_qz = module.encode_params(x)
     zdim = mu_qz.shape[-1]

@@ -45,7 +45,7 @@ class StepConfig:
     train_nz_cdae: int = 1
     train_nstd_cdae: int = 1
     train_nz_model: int = 1
-    ctx_type: str = "data"  # data | lt0
+    ctx_type: str = "data"  # data | lt0 | hidden1a (aux models)
     # the hand-written fused DSM kernels for phase A (ops/fused_dsm for a
     # res-style cdae, ops/fused_dsm_grad for a grad-style one); a config the
     # kernel does not cover raises instead of falling back
@@ -67,8 +67,9 @@ def compute_context(model, x, ctx_type):
         if ctx_type == "lt0":
             z = ivae_api.encode_det(model, x)
             return z.reshape(z.shape[0], -1)
-    raise NotImplementedError(
-        f"ctx type {ctx_type!r} is not ported yet: ROADMAP queue 1, slice 5")
+        if ctx_type == "hidden1a":
+            return ivae_api.encode_hidden_feats(model, x)
+    raise NotImplementedError(ctx_type)
 
 
 @torch.no_grad()
@@ -99,8 +100,9 @@ def _phase_a_kernel(cdae, n_rows):
 
 def cdae_update(model, cdae, opt_d, cfg, x, generator, draws=None):
     """One PHASE-A update, in place. ``draws``: optional injected
-    ``latent_eps`` (B*nz, noise), ``std`` (B, nz*nstd, 1), ``dsm_eps``
-    (B*nz*nstd, z). Returns the metrics (detached tensors)."""
+    ``latent_eps`` (B*nz, noise; an aux model's pair), ``std`` (B, nz*nstd,
+    1), ``dsm_eps`` (B*nz*nstd, z). Returns the metrics (detached
+    tensors)."""
     draws = draws or {}
     bsz = x.shape[0]
     lsm, sigma, latent_mean = _sigma_stats(model, x, cfg, generator,
@@ -109,6 +111,8 @@ def cdae_update(model, cdae, opt_d, cfg, x, generator, draws=None):
         # the std=0 encoding doubles as the context (ivae_ardae.py:735+748)
         ctx = latent_mean.reshape(bsz, -1)
     else:
+        # hidden1a: the std=0 features of the same parameters and input as
+        # the sigma pass (JAX reuses that pass's compute dtype; fp32 here)
         ctx = compute_context(model, x, cfg.ctx_type)
     ns = cfg.train_nz_cdae * cfg.train_nstd_cdae
     stdmat = sigma * _randn((bsz, ns, 1), generator, x.device, draws.get("std"))
@@ -128,7 +132,8 @@ def cdae_update(model, cdae, opt_d, cfg, x, generator, draws=None):
 
 def model_update(model, cdae, opt_m, cfg, x, beta, generator, draws=None):
     """PHASE B, in place: ELBO-without-entropy + injected entropy gradient.
-    ``draws``: optional injected ``eps`` (B*nz, noise_dim)."""
+    ``draws``: optional injected ``eps`` (B*nz, noise_dim; an aux model's
+    pair)."""
     draws = draws or {}
     bsz, nz = x.shape[0], cfg.train_nz_model
     model_loss, terms = ivae_api.ivae_loss(model, x, nz, beta=beta,

@@ -23,8 +23,10 @@ class VAEStepConfig:
 
 
 def vae_step(state, cfg, batch, beta, generator, eps=None):
-    """One update of ``state`` in place on a (B, D) batch. ``eps``: the
-    injected posterior draw (B, z_dim). Returns the metrics (detached)."""
+    """One update of ``state`` in place on a (B, D) batch; an aux model's
+    loss is ``aux_vae_loss`` (through ``vae_loss``), its KLD the two terms'
+    sum. ``eps``: the injected posterior draw (B, z_dim), or an aux model's
+    pair (eps0, eps). Returns the metrics (detached)."""
     loss, terms = vae_loss(state.model, batch, beta=beta, generator=generator,
                            eps=eps)
     loss = cfg.loss_scale * loss
@@ -41,7 +43,8 @@ def train_vae_chunk(state, cfg, data, idx, generator, beta_fn, binarize=False,
                     draws=None):
     """K steps over (K, B) integer indices into ``data`` (N, D) on the
     device. ``draws``: optional per-step list of {"bin": (B, D) uniforms,
-    "eps": (B, z_dim)}. Returns the last step's metrics."""
+    "eps": (B, z_dim) or an aux model's pair}. Returns the last step's
+    metrics."""
     metrics = None
     for k in range(len(idx)):
         d = draws[k] if draws else {}

@@ -54,6 +54,21 @@ Phases (each failure exits non-zero):
      warm-up); each run starts with every launch counter at 0 and checks 2
      fwd + 2 bwd res launches a step and no grad launch, finite losses and
      moved parameters;
+  5f. drives the hierarchical-aux lines with the hidden1a context, plus
+     --use-kernels --vis-interval 0, each run's launch counters at 0 just
+     before and read just after: auxresconvct (:38, mlp-res, context 450
+     wide), 6 steps, 2 fwd + 2 bwd res launches a step and no grad one;
+  5g. auxconv (:44, mlp-grad, context 1,600) and
+  5h. auxmnist (:50, mlp-grad, context 600), 6 steps each, 1 + 1 grad
+     launches a step and no res one;
+  5i. auxresconvct-clip on :38's flags, 4 steps, as 5c. Each checks the
+     context width the driver logs against context_dim_for, finite losses
+     and moved parameters;
+  6b. on the trained auxmnist IVAE of 5h: a checkpoint save and load of
+     its state (model, cdae, both optimizers, generator) bit for bit on the
+     card and the CPU, and logprob_iws / cov_gaussian_iws_from_draws with
+     the aux jitter 1e-5, card vs CPU (16 val items, the same draws, TF32
+     off): per item |card - CPU| <= 1e-3 nats;
   6. drives the flagship pipeline through cli.ivae_ardae with the line's
      flags plus --use-kernels, evals and checkpoints every 2 steps, IWS-256
      at eval batch 128, in one experiment directory: a 4-step run (val
@@ -86,10 +101,16 @@ Phases (each failure exits non-zero):
      logprob_iwae and vae_loss(reduce="per_item") on the card against the
      same functions on the CPU (the trained resconv model, 16 val items,
      the same injected draws): per item |card - CPU| <= 1e-3 nats.
+  7c. drives cli.vae on the aux baseline lines (auxresconv :19, auxconv
+     :25, auxmnist :31, plus --vis-interval 0), 6 steps each, no launch;
+     then aux_logprob_iwae and aux_vae_loss(reduce="per_item") on the card
+     against the CPU on the trained auxresconv baseline, <= 1e-3 nats per
+     item;
   7b. drives cli.vae --model toy on the 25-gaussians data of 5e (z 2, h
      256, 2 layers, bs 512): 6 steps and the toy final dump, no launch.
 Then it prints the kernels' JSON line (each kernel's launches over the
-main path's runs, and at its first line's shape its error, times, FLOP,
+main path's runs, 5-5i but 5c, and by line under "launched_by"; and at its
+first line's shape its error, times, FLOP,
 launches per step and bound, the grad kernel's 25-gaussians shape beside
 them under "at_25-gaussians"; the bound is the larger of
 3 x FLOP over the 495 TFLOP/s TF32 tensor-core peak, the kernel's products
@@ -172,6 +193,31 @@ TOY_VAE_ARGS = TOY_DATA + [
     "--model-n-layers", "2", "--model-nonlin", "softplus",
     "--train-batch-size", "512", "--optimizer", "adam", "--beta1", "0.5",
     "--lr", "0.001", "--epochs", "1", "--iws-samples", "8"]
+
+
+def with_flags(args, **flags):
+    """``args`` with each ``--flag-name`` set to its value."""
+    out = list(args)
+    for k, v in flags.items():
+        out[out.index("--" + k.replace("_", "-")) + 1] = v
+    return out
+
+
+# scripts/run_vae_dbmnist.sh :38 (auxresconvct + mlp-res), :44 (auxconv +
+# mlp-grad) and :50 (auxmnist + mlp-grad): the hierarchical-aux lines, each
+# with the hidden1a context, plus --vis-interval 0
+AUX_LINES = {
+    "auxresconvct": with_flags(
+        FLAGSHIP_ARGS, model="auxresconvct", model_h_dim="0", model_n_layers="0",
+        cdae_ctx_type="hidden1a", beta_init="0.0001", beta_annealing="50000"),
+    "auxconv": with_flags(IMPLICIT_CONV_ARGS, model="auxconv",
+                          cdae_ctx_type="hidden1a"),
+    "auxmnist": with_flags(MNIST_CONCAT_ARGS, model="auxmnist",
+                           cdae_ctx_type="hidden1a"),
+}
+AUX_LINES = {k: v + ["--vis-interval", "0"] for k, v in AUX_LINES.items()}
+# phase 5i: the -clip twin on :38's flags
+AUX_CLIP_ARGS = with_flags(AUX_LINES["auxresconvct"], model="auxresconvct-clip")
 SMOKE_ARGS = ["--log-interval", "2", "--eval-iws-interval", "0",
               "--ckpt-interval", "0", "--skip-final-test-eval", "--no-resume"]
 STEPS, HEAD_STEPS = 6, 4
@@ -203,10 +249,23 @@ BASELINE_LINES = {
         "--model", "mnist", "--model-h-dim", "300", "--model-n-layers", "2",
         "--model-nonlin", "softplus", "--beta-init", "1.0", "--epochs", "4700"],
 }
+# phase 7c: the aux baseline lines (:19, :25, :31), z0 width 100
+BASELINE_LINES.update({
+    "auxresconv": with_flags(BASELINE_LINES["resconv"], model="auxresconv")
+    + ["--model-n-dim", "100"],
+    "auxconv": with_flags(BASELINE_LINES["conv"], model="auxconv")
+    + ["--model-n-dim", "100"],
+    "auxmnist": with_flags(BASELINE_LINES["mlp"], model="auxmnist")
+    + ["--model-n-dim", "100"],
+})
 BASELINE_MODELS = {  # build_vae_model arguments of each line
     "resconv": dict(name="resconv", z_dim=32, nonlin="elu"),
     "conv": dict(name="conv", z_dim=32, nonlin="softplus"),
     "mlp": dict(name="mnist", z_dim=32, h_dim=300, n_layers=2, nonlin="softplus"),
+    "auxresconv": dict(name="auxresconv", z_dim=32, n_dim=100, nonlin="elu"),
+    "auxconv": dict(name="auxconv", z_dim=32, n_dim=100, nonlin="softplus"),
+    "auxmnist": dict(name="auxmnist", z_dim=32, h_dim=300, n_layers=2, n_dim=100,
+                     nonlin="softplus"),
 }
 PIPELINE_ARGS = ["--use-kernels", "--log-interval", "2", "--eval-iws-interval", "2",
                  "--ckpt-interval", "2", "--eval-batch-size", "128"]
@@ -470,13 +529,19 @@ def flag(args, name):
 
 def drive_line(torch, dev, k, kernels, line_args, what, card, steps=STEPS,
                data_root=None, dump=False):
-    """Phase 5/5b/5c/5d/5e: ``steps`` steps of a line through
-    cli.ivae_ardae.run with --use-kernels (then, with ``dump``, the toy final
-    dump instead of skipping the test eval); every launch counter is 0 just
-    before and read just after. Returns this kernel's launches."""
+    """Phase 5/5b-5i: ``steps`` steps of a line through cli.ivae_ardae.run
+    with --use-kernels (then, with ``dump``, the toy final dump instead of
+    skipping the test eval); every launch counter is 0 just before and read
+    just after. The driver must log the cdae context's width that
+    context_dim_for gives. Returns (this run's launches, the trained
+    state)."""
     from ardae_tpu_torch.cli import ivae_ardae
     from ardae_tpu_torch.models.ivae import api as ivae_api
-    from ardae_tpu_torch.models.registry import build_cdae, build_ivae_model
+    from ardae_tpu_torch.models.registry import (
+        build_cdae,
+        build_ivae_model,
+        context_dim_for,
+    )
 
     name = flag(line_args, "--model")
     with tempfile.TemporaryDirectory() as tmp:
@@ -506,14 +571,20 @@ def drive_line(torch, dev, k, kernels, line_args, what, card, steps=STEPS,
         fail(f"non-finite logged losses: {losses}")
     ms_step = [float(re.search(r"ms/step\s+(\S+)", ln).group(1)) for ln in lines]
     nchannels, nheight = int(flag(line_args, "--nchannels")), int(flag(line_args, "--nheight"))
-    z_dim = int(flag(line_args, "--model-z-dim"))
+    z_dim, h_dim = int(flag(line_args, "--model-z-dim")), int(flag(line_args, "--model-h-dim"))
+    ctx_type = flag(line_args, "--cdae-ctx-type")
+    ctx_dim = context_dim_for(ctx_type, model_name=name, nchannels=nchannels,
+                              nheight=nheight, z_dim=z_dim, h_dim=h_dim)
+    logged = [ln.strip() for ln in log if ln.startswith("cdae params")]
+    if len(logged) != 1 or not logged[0].endswith(f"context {ctx_type}, {ctx_dim} wide"):
+        fail(f"{what} {name}: logged {logged}, expected a {ctx_dim}-wide "
+             f"{ctx_type} context")
     init_m = build_ivae_model(
-        name, nchannels=nchannels, nheight=nheight, z_dim=z_dim,
-        h_dim=int(flag(line_args, "--model-h-dim")),
+        name, nchannels=nchannels, nheight=nheight, z_dim=z_dim, h_dim=h_dim,
         n_dim=int(flag(line_args, "--model-n-dim")),
         n_layers=int(flag(line_args, "--model-n-layers")),
         nonlin=flag(line_args, "--model-nonlin"), seed=0, device=dev)
-    init_d = build_cdae(k["cdae"], input_dim=z_dim, context_dim=z_dim,
+    init_d = build_cdae(k["cdae"], input_dim=z_dim, context_dim=ctx_dim,
                         h_dim=int(flag(line_args, "--cdae-h-dim")),
                         n_layers=int(flag(line_args, "--cdae-n-layers")),
                         nonlin=flag(line_args, "--cdae-nonlin"), seed=1, device=dev)
@@ -533,10 +604,11 @@ def drive_line(torch, dev, k, kernels, line_args, what, card, steps=STEPS,
         check_dump(log, line_args, what)
     print(f"{what} main path: {steps} steps of the {name} line with "
           f"--use-kernels in {wall:.1f} s (set-up{' and dump' if dump else ''} "
-          f"included); ms/step per log interval {ms_step}; steady "
-          f"{ms_step[-1]:.2f} ms/step = {1000.0 / ms_step[-1]:.3f} steps/s; "
-          f"kernel launches {launches}; losses finite | {card}", flush=True)
-    return launches
+          f"included); cdae context {ctx_type} {ctx_dim} wide; ms/step per log "
+          f"interval {ms_step}; steady {ms_step[-1]:.2f} ms/step = "
+          f"{1000.0 / ms_step[-1]:.3f} steps/s; kernel launches {launches}; "
+          f"losses finite | {card}", flush=True)
+    return launches, state
 
 
 def check_dump(log, line_args, what):
@@ -694,9 +766,10 @@ def checkpoint_roundtrip(torch, state, tmp, what):
         del fresh
 
 
-def iws_card_vs_cpu(torch, state, data_root, what):
+def iws_card_vs_cpu(torch, state, data_root, what, model_name="flagship model"):
     """logprob_iws and cov_gaussian_iws_from_draws on the card against the
-    CPU: the trained model copied, 16 binarized val items, the same draws."""
+    CPU: the trained model copied, 16 binarized val items, the same draws
+    (an aux model's pair), the aux models' jitter of 1e-5."""
     import copy
 
     from ardae_tpu_torch.data import get_dataset
@@ -705,26 +778,28 @@ def iws_card_vs_cpu(torch, state, data_root, what):
     g = torch.Generator().manual_seed(17)
     val = torch.as_tensor(get_dataset("dbmnist-val5k", root=data_root)["val"][:16])
     x = (torch.rand(val.shape, generator=g) < val).float()
-    ssz, zdim, noise = 256, state.model.z_dim, state.model.noise_dim
-    eps = torch.randn(16 * ssz, noise, generator=g)
-    new_eps = torch.randn(16, ssz, zdim, generator=g)
     models = {"cuda": state.model, "cpu": copy.deepcopy(state.model).cpu()}
+    ssz, zdim = 256, state.model.z_dim
+    eps = ivae_api.make_eps(models["cpu"], 16, ssz, generator=g)
+    new_eps = torch.randn(16, ssz, zdim, generator=g)
+    jitter = 1e-5 if state.model.family == "aux" else 0.0
+    on = lambda e, dev: tuple(t.to(dev) for t in e) if isinstance(e, tuple) else e.to(dev)
     out = {}
     with torch.no_grad():
         z = ivae_api.sample_latents(models["cpu"], x, ssz, eps=eps)
         for dev, m in models.items():
             out[dev] = (
-                ivae_api.logprob_iws(m, x.to(dev), ssz, reduce="per_item",
-                                     eps=eps.to(dev), new_eps=new_eps.to(dev)).cpu(),
+                ivae_api.logprob_iws(m, x.to(dev), ssz, jitter, reduce="per_item",
+                                     eps=on(eps, dev), new_eps=new_eps.to(dev)).cpu(),
                 ivae_api.cov_gaussian_iws_from_draws(
-                    m, x.to(dev), z.to(dev), eps=new_eps.to(dev)).cpu())
+                    m, x.to(dev), z.to(dev), jitter, eps=new_eps.to(dev)).cpu())
     for i, name in enumerate(("logprob_iws", "cov_gaussian_iws_from_draws")):
         card, cpu = out["cuda"][i], out["cpu"][i]
         if not (bool(torch.isfinite(card).all()) and bool(torch.isfinite(cpu).all())):
             fail(f"{what}: {name} is not finite")
         diff = float((card - cpu).abs().max())
-        print(f"{what}: {name} card vs CPU at the flagship model, 16 items, "
-              f"IWS-256: max per-item |diff| {diff:.2e} nats (bound "
+        print(f"{what}: {name} card vs CPU at the {model_name}, 16 items, "
+              f"IWS-256, jitter {jitter:g}: max per-item |diff| {diff:.2e} nats (bound "
               f"{IWS_ATOL:.0e}); card mean {float(card.mean()):.4f}", flush=True)
         if not diff <= IWS_ATOL:
             fail(f"{what}: {name} card and CPU differ by {diff:.2e} nats")
@@ -786,13 +861,39 @@ def drive_heads(torch, dev, res, kernels, card):
             torch.cuda.empty_cache()
 
 
-def drive_baseline_line(torch, dev, kernels, line, tmp, card):
-    """Phase 7: STEPS steps of a baseline line through cli.vae with no eval;
-    no kernel may launch, the logged losses are finite and the parameters
-    move."""
+def drive_aux(torch, dev, res, grad, kernels, card, launches):
+    """Phases 5f-5i: the three hierarchical-aux lines (hidden1a context)
+    and the -clip twin of :38, one data directory shared; each run's
+    launches go into ``launches`` by line. Then phase 6b on the trained
+    auxmnist IVAE: its checkpoint roundtrip and IWS (jitter 1e-5) card vs
+    CPU."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        runs = [(res, "phase 5f", "auxresconvct", AUX_LINES["auxresconvct"], STEPS),
+                (grad, "phase 5g", "auxconv", AUX_LINES["auxconv"], STEPS),
+                (grad, "phase 5h", "auxmnist", AUX_LINES["auxmnist"], STEPS),
+                (res, "phase 5i", "auxresconvct-clip", AUX_CLIP_ARGS, HEAD_STEPS)]
+        for k, what, line, args, steps in runs:
+            counts, state = drive_line(torch, dev, k, kernels, args, what, card,
+                                       steps=steps, data_root=data)
+            launches[line] = counts
+            if line == "auxmnist":
+                trained = state
+            del state
+            torch.cuda.empty_cache()
+        checkpoint_roundtrip(torch, trained, tmp, "phase 6b auxmnist")
+        iws_card_vs_cpu(torch, trained, data, "phase 6b", "auxmnist IVAE")
+        del trained
+    torch.cuda.empty_cache()
+
+
+def drive_baseline_line(torch, dev, kernels, line, tmp, card, what=None):
+    """Phase 7/7c: STEPS steps of a baseline line through cli.vae with no
+    eval; no kernel may launch, the logged losses are finite and the
+    parameters move. Returns the trained state."""
     from ardae_tpu_torch.cli import vae
 
-    what = f"phase 7 {line}"
+    what = what or f"phase 7 {line}"
     argv = BASELINE_LINES[line] + SMOKE_ARGS + [
         "--max-iters", str(STEPS), "--cache", os.path.join(tmp, "exp"),
         "--data-root", os.path.join(tmp, "data")]
@@ -800,6 +901,22 @@ def drive_baseline_line(torch, dev, kernels, line, tmp, card):
                                                 driver=vae)
     baseline_checks(torch, dev, state, launches, lines, path,
                     BASELINE_MODELS[line], what, card)
+    return state
+
+
+def drive_aux_baselines(torch, dev, kernels, card):
+    """Phase 7c: STEPS steps of each aux baseline line (:19, :25, :31)
+    through cli.vae, no launch; then aux_logprob_iwae and aux_vae_loss card
+    vs CPU on the trained auxresconv baseline."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for line in ("auxresconv", "auxconv", "auxmnist"):
+            state = drive_baseline_line(torch, dev, kernels, line, tmp, card,
+                                        what=f"phase 7c {line}")
+            if line == "auxresconv":
+                iwae_card_vs_cpu(torch, state, os.path.join(tmp, "data"),
+                                 "phase 7c", "auxresconv baseline")
+            del state
+            torch.cuda.empty_cache()
 
 
 def baseline_checks(torch, dev, state, launches, lines, path, model, what, card):
@@ -846,9 +963,11 @@ def drive_toy_baseline(torch, dev, kernels, card):
         check_dump(lines, TOY_VAE_ARGS, what)
 
 
-def iwae_card_vs_cpu(torch, state, data_root, what):
+def iwae_card_vs_cpu(torch, state, data_root, what, model_name="resconv baseline"):
     """logprob_iwae and vae_loss(reduce="per_item") on the card against the
-    CPU: the trained model copied, 16 binarized val items, the same draws."""
+    CPU (an aux model's aux_logprob_iwae and aux_vae_loss, through the
+    API): the trained model copied, 16 binarized val items, the same
+    draws."""
     import copy
 
     from ardae_tpu_torch.data import get_dataset
@@ -858,23 +977,31 @@ def iwae_card_vs_cpu(torch, state, data_root, what):
     val = torch.as_tensor(get_dataset("dbmnist-val5k", root=data_root)["val"][:16])
     x = (torch.rand(val.shape, generator=g) < val).float()
     ssz, zdim = 256, state.model.z_dim
-    eps = torch.randn(16, ssz, zdim, generator=g)
-    elbo_eps = torch.randn(16, zdim, generator=g)
+    if state.model.family == vae_api.AUX:
+        noise = state.model.noise_dim
+        eps = (torch.randn(16 * ssz, noise, generator=g),
+               torch.randn(16 * ssz, zdim, generator=g))
+        elbo_eps = (torch.randn(16, noise, generator=g),
+                    torch.randn(16, zdim, generator=g))
+    else:
+        eps = torch.randn(16, ssz, zdim, generator=g)
+        elbo_eps = torch.randn(16, zdim, generator=g)
+    on = lambda e, dev: tuple(t.to(dev) for t in e) if isinstance(e, tuple) else e.to(dev)
     models = {"cuda": state.model, "cpu": copy.deepcopy(state.model).cpu()}
     out = {}
     with torch.no_grad():
         for dev, m in models.items():
             out[dev] = (
                 vae_api.logprob_iwae(m, x.to(dev), ssz, reduce="per_item",
-                                     eps=eps.to(dev)).cpu(),
+                                     eps=on(eps, dev)).cpu(),
                 vae_api.vae_loss(m, x.to(dev), reduce="per_item",
-                                 eps=elbo_eps.to(dev))[0].cpu())
+                                 eps=on(elbo_eps, dev))[0].cpu())
     for i, name in enumerate(("logprob_iwae", "vae_loss")):
         card, cpu = out["cuda"][i], out["cpu"][i]
         if not (bool(torch.isfinite(card).all()) and bool(torch.isfinite(cpu).all())):
             fail(f"{what}: {name} is not finite")
         diff = float((card - cpu).abs().max())
-        print(f"{what}: {name} card vs CPU at the resconv baseline, 16 items"
+        print(f"{what}: {name} card vs CPU at the {model_name}, 16 items"
               f"{', IWAE-256' if i == 0 else ''}: max per-item |diff| {diff:.2e} "
               f"nats (bound {IWS_ATOL:.0e}); card mean {float(card.mean()):.4f}",
               flush=True)
@@ -1010,22 +1137,26 @@ def main():
             del args
             torch.cuda.empty_cache()
 
-    launches = {}   # each kernel's launches over the main path's runs
-    for k, what, line_args, dump in (
-            (res, "phase 5", FLAGSHIP_ARGS, False),
-            (grad, "phase 5b", IMPLICIT_CONV_ARGS, False),
-            (grad, "phase 5d", MNIST_CONCAT_ARGS, False),
-            (grad, "phase 5e", TOY_ARGS, True)):
-        for n, c in drive_line(torch, dev, k, kernels, line_args, what, card,
-                               dump=dump).items():
-            if n in k["fn"].launches:
-                launches[n] = launches.get(n, 0) + c
+    by_line = {}   # each main-path run's launches, by line
+    for k, what, line, line_args, dump in (
+            (res, "phase 5", "flagship", FLAGSHIP_ARGS, False),
+            (grad, "phase 5b", "implicit-conv", IMPLICIT_CONV_ARGS, False),
+            (grad, "phase 5d", "mnist-concat", MNIST_CONCAT_ARGS, False),
+            (grad, "phase 5e", "25-gaussians", TOY_ARGS, True)):
+        by_line[line], _ = drive_line(torch, dev, k, kernels, line_args, what,
+                                      card, dump=dump)
         torch.cuda.empty_cache()
 
     drive_heads(torch, dev, res, kernels, card)
+    drive_aux(torch, dev, res, grad, kernels, card, by_line)
     drive_pipeline(torch, res, kernels, card)
     drive_baseline(torch, dev, kernels, card)
+    drive_aux_baselines(torch, dev, kernels, card)
     drive_toy_baseline(torch, dev, kernels, card)
+    launches = {n: sum(c[n] for c in by_line.values()) for k in kernels
+                for n in k["fn"].launches}
+    launched_by = {n: {line: c[n] for line, c in by_line.items() if c[n]}
+                   for n in launches}
 
     def numbers(k, line, which):
         (errs, med, work) = shapes[k["cdae"], line]
@@ -1043,6 +1174,7 @@ def main():
         first, *others = k["lines"]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
+                "launched_by": launched_by[name],
                 **numbers(k, first, which), "launches_per_step": k["updates"],
                 **{f"at_{line}": numbers(k, line, which) for line in others}}
 

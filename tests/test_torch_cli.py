@@ -240,9 +240,16 @@ def test_use_kernels_on_uncovered_cdae_raises(tmp_path):
 
 
 def test_unported_model_raises(tmp_path):
+    """Every --model name trains now (the aux ones: test_torch_aux_cli.py);
+    the legacy --cdae mlp model is still refused, as in JAX, and an aux line
+    with an unported flag raises naming its ROADMAP item."""
     args = _args(tmp_path)
+    args[args.index("mlp-res")] = "mlp"
+    with pytest.raises(NotImplementedError, match="legacy"):
+        ivae_ardae.run(args)
+    args = _args(tmp_path, "--m-weight-avg", "polyak")
     args[args.index("resconvct-res")] = "auxmnist"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, slice 6"):
         ivae_ardae.run(args)
 
 
