@@ -1,9 +1,9 @@
 """Driver plumbing shared by both drivers (JAX twin:
 ardae_tpu/cli/common.py): the device, experiment naming and resume
 directory, the train / eval / checkpoint pipeline, the host index stream,
-chunk boundaries, the eval generators, the IWS evaluation of an implicit VAE,
-the IWAE evaluation of a baseline VAE over a split, and the toy final
-dump."""
+chunk boundaries, the eval and visualization generators, the IWS
+evaluation of an implicit VAE, the IWAE evaluation of a baseline VAE over a
+split, and the toy final dump."""
 
 import datetime
 import glob
@@ -20,6 +20,7 @@ from ardae_tpu_torch.io.logging import get_time, logging, make_writer
 
 TEST_EVAL_TAG = 999_983  # the test eval's generator tag (JAX: fold_in(k_eval, 999_983))
 DUMP_TAG = 999_979       # the toy final dump's (JAX: fold_in(k_eval, 999_979))
+VIS_TAG = 999_961        # with the iteration, a visualization's
 DUMP_CHUNK = 131_072     # rows of the toy final dump a chunk
 TOY_DATASETS = ("swissroll", "25gaussians")
 
@@ -40,8 +41,10 @@ def select_device(no_cuda):
 
 def eval_generator(seed, tag, device):
     """The generator of one eval, seeded from (seed, tag): the val eval at
-    iteration i takes tag i, the test eval TEST_EVAL_TAG."""
-    state = np.random.SeedSequence([seed, tag]).generate_state(1, np.uint64)[0]
+    iteration i takes tag i, the test eval TEST_EVAL_TAG, the visualization
+    at iteration i the pair (VIS_TAG, i). No training draw comes from it."""
+    tags = tag if isinstance(tag, tuple) else (tag,)
+    state = np.random.SeedSequence([seed, *tags]).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
 
 
@@ -49,14 +52,11 @@ def open_run(opt, derive_experiment, device):
     """The set-up both drivers share, in this order: the dataset (final mode
     folds val into train), the iteration count, the experiment directory
     (the latest matching one under ``--resume``, else a new one), final
-    mode's end iteration, the refusal of a visualization cadence the run
-    would reach, and the log's header. Sets ``opt.path``,
+    mode's end iteration, and the log's header. Sets ``opt.path``,
     ``opt.experiment`` and ``opt.best_val_loss`` (None). Returns (splits,
     steps per epoch, total iterations, end iteration or None, writer)."""
     opt.best_val_loss = None
     final_mode = opt.train_mode == "final"
-    # data first: the iteration count decides whether the run reaches the
-    # visualization cadence
     splits = data.get_dataset(opt.dataset, root=opt.data_root,
                               final_mode=final_mode,
                               toy_sizes=toy_sizes(opt.toy_train_size))
@@ -71,11 +71,6 @@ def open_run(opt, derive_experiment, device):
         opt.experiment = derive_experiment(opt)
     opt.path = resolve_experiment_path(opt.cache, opt.experiment, opt.resume)
     end_iter = load_end_iter(opt.path, "best-checkpoint") if final_mode else None
-    reach = total_iters if end_iter is None else min(total_iters, end_iter)
-    if 0 < opt.vis_interval <= reach:
-        raise NotImplementedError(
-            f"not ported yet: visualization (--vis-interval {opt.vis_interval}): "
-            "ROADMAP queue 1, slice 6 item 14")
     logging(str(opt), path=opt.path)
     writer = make_writer(opt.path)
     if opt.dataset in TOY_DATASETS:
@@ -119,12 +114,13 @@ def resume_run(state, opt, flavor, generator):
 
 
 def run_pipeline(opt, state, generator, run, train_chunk, evaluate, log_train,
-                 final=None):
+                 visualize, final=None):
     """The pipeline both drivers share once their state is built: resume
     from ``checkpoint`` (``final-checkpoint`` in final mode), train in
     chunks that end at every cadence boundary, log, halt on a NaN/Inf
     metric at log time, the val eval with ``best-checkpoint`` on
-    improvement, ``checkpoint`` every ``--ckpt-interval`` steps, final
+    improvement, the visualization every ``--vis-interval`` steps (0: none
+    during training), ``checkpoint`` every ``--ckpt-interval`` steps, final
     mode's stop at the best iteration, and the test eval from
     ``best-checkpoint`` (or ``final-checkpoint``). Returns (state,
     experiment directory); the state is the one the test eval loaded.
@@ -134,8 +130,9 @@ def run_pipeline(opt, state, generator, run, train_chunk, evaluate, log_train,
     the split's bounds as [(label, scalar name, value)], the last of them
     the one that picks ``best-checkpoint``. ``log_train(i_ep, metrics)``
     returns the train line's tail and its scalars {name: value}.
+    ``visualize(state, i_ep)`` writes the panels of iteration ``i_ep``.
     ``final(writer)``, where given, takes the test eval's place (the toy
-    final dump), on the live state."""
+    final dump), after one more visualization, as in the JAX drivers."""
     from ardae_tpu_torch.io.checkpoint import save_checkpoint
 
     splits, steps_per_epoch, total_iters, end_iter, writer = run
@@ -155,6 +152,12 @@ def run_pipeline(opt, state, generator, run, train_chunk, evaluate, log_train,
         bounds = evaluate(split, tag)
         text = " | ".join(f"{label} {v:.4f}" for label, _, v in bounds)
         return bounds, f"| sec/step {time.time() - t0:5.2f} | {text} "
+
+    def timed_visualize():
+        t0 = time.time()
+        visualize(state, i_ep)
+        logging(f"| vis        | iter {i_ep} | sec {time.time() - t0:5.2f} ",
+                path=opt.path)
 
     def banner(line):
         logging("-" * 89, path=opt.path)
@@ -204,9 +207,11 @@ def run_pipeline(opt, state, generator, run, train_chunk, evaluate, log_train,
                 if opt.best_val_loss is None or logprob > opt.best_val_loss:
                     opt.best_val_loss = logprob
                     save("best-checkpoint")
+            if opt.vis_interval > 0 and i_ep % opt.vis_interval == 0:
+                timed_visualize()
             if opt.ckpt_interval > 0 and i_ep % opt.ckpt_interval == 0:
                 save(f"{prefix}checkpoint")
-            # eval and checkpoint time stays out of the next ms/step
+            # eval, visualization and checkpoint time stays out of the next ms/step
             start_time += time.time() - t_side
 
     except KeyboardInterrupt:
@@ -222,6 +227,7 @@ def run_pipeline(opt, state, generator, run, train_chunk, evaluate, log_train,
         logging("| skipping final test eval (--skip-final-test-eval)",
                 path=opt.path)
     elif final is not None:
+        timed_visualize()
         final(writer)
     else:
         flavor = f"{prefix}checkpoint" if final_mode else "best-checkpoint"
@@ -396,6 +402,65 @@ def _mean(sums, n):
     return total / max(n, 1)
 
 
+def vis_pool(opt, data_dev, binarize, generator):
+    """The visualization's data: the first min(20,000, n_train) training
+    rows, binarized anew from ``generator`` where the split is dynamically
+    binarized (JAX cli/ivae_ardae.py:433-436)."""
+    xs = data_dev[:min(20000, data_dev.shape[0])]
+    if binarize:
+        u = torch.rand(xs.shape, generator=generator, device=xs.device)
+        xs = (u < xs).to(torch.float32)
+    return xs
+
+
+def gt_latent_panel():
+    """The ground-truth latent heatmap, N(0, I) over [-4, 4]^2 at 256 bins
+    (JAX cli/ivae_ardae.py:409-411)."""
+    from ardae_tpu_torch.core.energy import normal_energy_func
+    from ardae_tpu_torch.utils import visualization as vis
+
+    return vis.get_imshow_plot(
+        vis.get_prob_from_energy_func_for_vis(normal_energy_func, num=256))
+
+
+def latent_panels(z, val):
+    """(scatter, 128-bin heatmap) of the first two latent coordinates of z
+    (n, z_dim) over [-val, val]^2."""
+    from ardae_tpu_torch.utils import visualization as vis
+
+    z2 = np.asarray(z)[:, :2]
+    return (vis.get_scatter_plot(z2, xlim=val, ylim=val),
+            vis.get_2d_histogram_plot(z2, val=val, num=128))
+
+
+def write_toy_panels(writer, mode, i_ep, data, out, gen):
+    """The toy runs' data | recon | gen scatter and 128-bin heatmap over
+    [-6, 6]^2 (JAX cli/ivae_ardae.py:476-492); returns the gen heatmap."""
+    from ardae_tpu_torch.utils import visualization as vis
+
+    arrays = [np.asarray(a) for a in (data, out, gen)]
+    for kind, draw in (("scatter", lambda a: vis.get_scatter_plot(a, xlim=6, ylim=6)),
+                       ("heatmap", lambda a: vis.get_2d_histogram_plot(a, val=6, num=128))):
+        panels = [draw(a) for a in arrays]
+        writer.add_image(f"{mode}/data-recon-gen/{kind}",
+                         vis.convert_npimage_torchimage(np.concatenate(panels, axis=1)),
+                         i_ep)
+    return panels[-1]
+
+
+def write_grid_panels(writer, opt, i_ep, x, sample, mean, gen_sample, gen_mean):
+    """The MNIST runs' data | recon | gen image grids, the sampled and the
+    mean ones (JAX cli/ivae_ardae.py:496-506)."""
+    from ardae_tpu_torch.utils.visualization import get_grid_image
+
+    n = x.shape[0]
+    grid = lambda t: get_grid_image(t.detach().cpu().numpy(), n, opt.nchannels,
+                                    opt.nheight)
+    for kind, rec, gen in (("sample", sample, gen_sample), ("mean", mean, gen_mean)):
+        writer.add_image(f"{opt.train_mode}/data-recon-gen/{kind}",
+                         np.concatenate([grid(x), grid(rec), grid(gen)], axis=2), i_ep)
+
+
 def toy_final_dump(opt, model, train_np, reconstruct, generate, writer):
     """The toy runs' end (JAX cli/ivae_ardae.py:638-667, cli/vae.py:
     473-499): the first min(1,000,000, n_train) training points in chunks
@@ -406,10 +471,7 @@ def toy_final_dump(opt, model, train_np, reconstruct, generate, writer):
     latent heatmaps (over [-4, 4]^2), 256 bins each, to the writer and to
     ``toy-dump.npz`` in the experiment directory (the panels and the four
     count grids), and logs the rows and how many values are not finite.
-    The JAX drivers draw the periodic visualization's panels first; those
-    wait with it (ROADMAP queue 1, slice 6 item 14). Returns the dumped
-    (data, recon, gen, latent) arrays."""
-    from ardae_tpu_torch.core.energy import normal_energy_func
+    Returns the dumped (data, recon, gen, latent) arrays."""
     from ardae_tpu_torch.utils import visualization as vis
 
     t0 = time.time()
@@ -429,9 +491,8 @@ def toy_final_dump(opt, model, train_np, reconstruct, generate, writer):
               for k, v in arrays.items()}
     drg = np.concatenate([vis.get_imshow_plot(counts[k])
                           for k in ("data", "recon", "gen")], axis=1)
-    gt = vis.get_imshow_plot(
-        vis.get_prob_from_energy_func_for_vis(normal_energy_func, num=256))
-    lat = np.concatenate([gt, vis.get_imshow_plot(counts["latent"])], axis=1)
+    lat = np.concatenate([gt_latent_panel(), vis.get_imshow_plot(counts["latent"])],
+                         axis=1)
     writer.add_image("test/data-recon-gen/heatmap",
                      vis.convert_npimage_torchimage(drg), 0)
     writer.add_image("test/latent/heatmap", vis.convert_npimage_torchimage(lat), 0)

@@ -18,12 +18,17 @@ on improvement, ``checkpoint`` every ``--ckpt-interval`` steps, resume
 from it, ``--train-mode final`` (train+val up to the best checkpoint's
 iteration, ``final-checkpoint``), and the test IWS eval from the best (or
 final) checkpoint; a toy run ends in the toy final dump instead
-(``cli/common.py`` ``toy_final_dump``). The eval draws come from a
-generator of their own, seeded from (``--seed``, iteration), never from the
-training generator, so neither the eval cadence nor a resume shifts the
-training noise. Flags and cadences the port does not cover raise
-NotImplementedError naming their ROADMAP item whenever the run would use
-them; none is ignored in silence.
+(``cli/common.py`` ``toy_final_dump``). Every ``--vis-interval`` steps, and
+once more before a toy run's dump, ``visualize`` writes the JAX driver's
+panels to the writer. ``--m-weight-avg polyak|swa`` keeps an averaged model,
+which the evals, the panels and the dump read. The eval and visualization
+draws come from generators of their own, seeded from (``--seed``,
+iteration), never from the training generator, so neither the eval or
+visualization cadence nor a resume shifts the training noise. Flags the
+port does not cover (bf16, ``--dp-devices`` / ``--sp-devices``,
+``--profile-dir``, jacobian clamping) raise NotImplementedError naming
+their ROADMAP item whenever the run would use them; none is ignored in
+silence.
 
 Device: ``--no-cuda`` selects the CPU, as in the reference; otherwise the
 run needs a CUDA device and raises without one.
@@ -32,6 +37,7 @@ run needs a CUDA device and raises without one.
 import argparse
 import sys
 
+import numpy as np
 import torch
 
 
@@ -187,8 +193,6 @@ def _unsupported_flags(opt):
     if opt.lmbd_init != 0.0 or opt.lmbd_fin != 0.0:
         out.append("jacobian clamping (--lmbd-*) is dormant in the reference "
                    "too: every model's jac_clamping_loss raises")
-    if opt.m_weight_avg != "none":
-        out.append(f"--m-weight-avg {opt.m_weight_avg}: {q}slice 6 item 14")
     if "bfloat16" in (opt.cdae_compute_dtype, opt.model_compute_dtype):
         out.append("bf16 compute: ROADMAP queue 1 (after the fp32 slices)")
     if opt.dp_devices > 1 or opt.sp_devices > 1:
@@ -212,13 +216,19 @@ def run(argv=None):
 
     from ardae_tpu_torch.cli.common import (
         TOY_DATASETS,
+        VIS_TAG,
         IndexStream,
         eval_generator,
         evaluate_iws_ivae,
+        gt_latent_panel,
+        latent_panels,
         open_run,
         run_pipeline,
         select_device,
         toy_final_dump,
+        vis_pool,
+        write_grid_panels,
+        write_toy_panels,
     )
     from ardae_tpu_torch.core.annealing import annealing_func
     from ardae_tpu_torch.io.logging import logging
@@ -265,13 +275,16 @@ def run(argv=None):
                             beta1=opt.m_beta1, momentum=opt.d_momentum)
     opt_d = build_optimizer(opt.d_optimizer, cdae.parameters(), opt.d_lr,
                             beta1=opt.d_beta1, momentum=opt.d_momentum)
-    state = create_train_state(model, opt_m, cdae, opt_d)
+    state = create_train_state(model, opt_m, cdae, opt_d,
+                               weight_avg=opt.m_weight_avg)
     cfg = StepConfig(
         std_scale=opt.std_scale, delta=opt.delta,
         num_cdae_updates=opt.num_cdae_updates,
         train_nz_cdae=opt.train_nz_cdae, train_nstd_cdae=opt.train_nstd_cdae,
         train_nz_model=opt.train_nz_model, ctx_type=opt.cdae_ctx_type,
-        use_kernels=opt.use_kernels)
+        use_kernels=opt.use_kernels, weight_avg=opt.m_weight_avg,
+        weight_avg_start=opt.m_weight_avg_start,
+        weight_avg_decay=opt.m_weight_avg_decay)
     if opt.train_nz_cdae < 2:
         logging("| warning: --train-nz-cdae < 2 makes the per-item sigma "
                 "estimate (sample std over nz) NaN, as in the reference; use "
@@ -299,7 +312,7 @@ def run(argv=None):
 
     def evaluate(split, tag):
         logprob = evaluate_iws_ivae(
-            state.model, splits[split], opt.iws_samples,
+            state.eval_model, splits[split], opt.iws_samples,
             eval_generator(opt.seed, tag, device), binarize=binarize,
             batch=opt.eval_batch_size, jitter=jitter)
         return [("logprob (iws)", "logprob/iws", logprob)]
@@ -321,14 +334,75 @@ def run(argv=None):
             "cdae/std/true/mean": std_true, "cdae/std/eff/max": m["std_eff_max"],
             "cdae/std/eff/min": m["std_eff_min"], "cdae/lr": opt.d_lr}
 
-    def final(writer):
-        from ardae_tpu_torch.models.ivae.api import generate, reconstruct
+    from ardae_tpu_torch.models.ivae import api as ivae_api
+    from ardae_tpu_torch.utils.visualization import convert_npimage_torchimage
 
-        toy_final_dump(opt, state.model, train_np, reconstruct, generate, writer)
+    writer = run_info[4]
+    is_toy = opt.dataset in TOY_DATASETS
+    gt_latent = gt_latent_panel()
+
+    def visualize(state, i_ep):
+        """The JAX driver's panels (ardae_tpu/cli/ivae_ardae.py:424-507):
+        logvar_qz scalars and histograms from 64 draws of 256 items (its
+        item-indexed tags), the latent scatter and heatmaps from 4,096 items
+        at noise scales None / 0.8 / 0.5 / 0.1 / 0 (one draw, scaled), and
+        data | recon | gen panels: scatter and heatmap on the toy data,
+        sampled and mean image grids on MNIST. Every draw comes from the
+        generator of (``--seed``, VIS_TAG, i_ep)."""
+        model, mode = state.eval_model, opt.train_mode
+        gen = eval_generator(opt.seed, (VIS_TAG, i_ep), device)
+        with torch.no_grad():
+            xs = vis_pool(opt, data_dev, binarize, gen)
+            x_lat = xs[:4096]
+            eps = ivae_api.make_eps(model, x_lat.shape[0], 1, generator=gen,
+                                    device=device)
+            lat = {lbl: ivae_api.sample_latents(model, x_lat, 1, noise_std=s, eps=eps)
+                   .reshape(-1, opt.model_z_dim).cpu().numpy()
+                   for lbl, s in (("", None), ("08", 0.8), ("05", 0.5),
+                                  ("01", 0.1), ("0", 0.0))}
+            z = ivae_api.sample_latents(model, xs[:256], 64, generator=gen)
+            logvar_qz = np.log(np.var(z.cpu().numpy(), axis=1) + 1e-10)
+            if is_toy:
+                gen_x = ivae_api.generate(model, xs.shape[0], generator=gen)[0]
+                out = ivae_api.reconstruct(model, xs, generator=gen)[0]
+            else:
+                n_grid = min(opt.train_batch_size, xs.shape[0])
+                out, omu, _ = ivae_api.reconstruct(model, xs[:n_grid], generator=gen)
+                gen_x, gmu, _ = ivae_api.generate(model, n_grid, generator=gen)
+        writer.add_scalar(f"{mode}/enc/logvar_qz/mean/step",
+                          float(logvar_qz.mean()), i_ep)
+        writer.add_scalar(f"{mode}/enc/logvar_qz/median/step",
+                          float(np.median(logvar_qz)), i_ep)
+        writer.add_histogram(f"{mode}/enc/logvar_qz/hist/step",
+                             logvar_qz.reshape(-1), i_ep)
+        for ii in range(min(2, logvar_qz.shape[0])):
+            # the JAX driver's tag, "train" prefix and all
+            writer.add_histogram(f"train{mode}/enc/logvar_qz/hist/item{ii}/step",
+                                 logvar_qz[ii], i_ep)
+        val = 4 if is_toy else 6
+        scatter, latent = latent_panels(lat[""], val)
+        img = lambda *panels: convert_npimage_torchimage(np.concatenate(panels, axis=1))
+        writer.add_image(f"{mode}/latent/scatter", img(scatter), i_ep)
+        writer.add_image(f"{mode}/gt_latent/heatmap", img(gt_latent, latent), i_ep)
+        writer.add_image(f"{mode}/latent/heatmap", img(latent), i_ep)
+        stds = [latent_panels(lat[s], val)[1] for s in ("08", "05", "01", "0")]
+        writer.add_image(f"{mode}/alllatent/heatmap",
+                         img(gt_latent, latent, *stds), i_ep)
+        if is_toy:
+            gen_heat = write_toy_panels(writer, mode, i_ep, xs.cpu(), out.cpu(),
+                                        gen_x.cpu())
+            # the JAX driver writes this tag whatever the mode
+            writer.add_image("train/gen/heatmap", img(gen_heat), i_ep)
+        else:
+            write_grid_panels(writer, opt, i_ep, xs[:n_grid], out, omu, gen_x, gmu)
+        writer.flush()
+
+    def final(writer):
+        toy_final_dump(opt, state.eval_model, train_np, ivae_api.reconstruct,
+                       ivae_api.generate, writer)
 
     return run_pipeline(opt, state, generator, run_info, train, evaluate,
-                        log_train,
-                        final if opt.dataset in TOY_DATASETS else None)
+                        log_train, visualize, final if is_toy else None)
 
 
 if __name__ == "__main__":

@@ -2,23 +2,28 @@
 ardae_tpu/cli/vae.py; reference vae.py).
 
 The whole flag surface parses (reference vae.py:28-127) and experiment
-names match the JAX driver's. The port trains the MNIST-family baselines
-``mnist``, ``conv``, ``resconv`` and ``resconvct`` and their hierarchical
-twins ``auxmnist``, ``auxconv``, ``auxresconv`` and ``auxresconvct`` (the
-aux ELBO and IWAE, models/vae/aux.py) on the MNIST family and sbMNIST, and
-``toy`` and ``auxtoy`` on the toy datasets (swissroll, 25gaussians; a
-Gaussian likelihood): one optimizer, the loss scaled by 1/(C*H*W) before
-the backward, beta annealing, and the whole pipeline: train, the val IWAE
-eval (exact q) every ``--eval-iws-interval`` steps with ``best-checkpoint``
-on improvement, ``checkpoint`` every ``--ckpt-interval`` steps, resume from
-it, ``--train-mode final`` (train+val up to the best checkpoint's
-iteration, ``final-checkpoint``), and the test eval from the best (or
-final) checkpoint; a toy run ends in the toy final dump instead
-(``cli/common.py`` ``toy_final_dump``). The eval draws come from a
-generator of their own seeded from (``--seed``, iteration), never from the
-training generator. Flags and cadences the port does not cover raise
-NotImplementedError naming their ROADMAP item whenever the run would use
-them; none is ignored in silence.
+names match the JAX driver's. The port trains every baseline name: the
+MNIST-family baselines ``mnist``, ``conv``, ``resconv`` and ``resconvct``
+and their hierarchical twins ``auxmnist``, ``auxconv``, ``auxresconv`` and
+``auxresconvct`` (the aux ELBO and IWAE, models/vae/aux.py) on the MNIST
+family and sbMNIST, and ``toy``, ``toy-maf`` (a conditional-MAF posterior,
+models/vae/maf.py) and ``auxtoy`` on the toy datasets (swissroll,
+25gaussians; a Gaussian likelihood): one optimizer, the loss scaled by
+1/(C*H*W) before the backward, beta annealing, and the whole pipeline:
+train, the val IWAE eval (exact q) every ``--eval-iws-interval`` steps with
+``best-checkpoint`` on improvement, ``checkpoint`` every
+``--ckpt-interval`` steps, resume from it, ``--train-mode final``
+(train+val up to the best checkpoint's iteration, ``final-checkpoint``),
+and the test eval from the best (or final) checkpoint; a toy run ends in
+the toy final dump instead (``cli/common.py`` ``toy_final_dump``). Every
+``--vis-interval`` steps, and once more before a toy run's dump,
+``visualize`` writes the JAX driver's panels to the writer.
+``--weight-avg polyak|swa`` keeps an averaged model, which the evals, the
+panels and the dump read. The eval and visualization draws come from
+generators of their own seeded from (``--seed``, iteration), never from
+the training generator. Flags the port does not cover (bf16,
+``--dp-devices``) raise NotImplementedError naming their ROADMAP item
+whenever the run would use them; none is ignored in silence.
 
 Device: ``--no-cuda`` selects the CPU, as in the reference; otherwise the
 run needs a CUDA device and raises without one.
@@ -27,6 +32,7 @@ run needs a CUDA device and raises without one.
 import argparse
 import sys
 
+import numpy as np
 import torch
 
 
@@ -127,10 +133,6 @@ def _unsupported_flags(opt):
     """The parts of this run the port does not have yet, each with the
     ROADMAP item that ports it."""
     out = []
-    if opt.model == "toy-maf":
-        out.append(f"toy-maf: {_Q}slice 6 item 14")
-    if opt.weight_avg != "none":
-        out.append(f"--weight-avg {opt.weight_avg}: {_Q}slice 6 item 14")
     if opt.model_compute_dtype == "bfloat16":
         out.append("bf16 compute: ROADMAP queue 1 (after the fp32 slices)")
     if opt.dp_devices > 1:
@@ -149,13 +151,19 @@ def run(argv=None):
 
     from ardae_tpu_torch.cli.common import (
         TOY_DATASETS,
+        VIS_TAG,
         IndexStream,
         eval_generator,
         evaluate_iwae_vae,
+        gt_latent_panel,
+        latent_panels,
         open_run,
         run_pipeline,
         select_device,
         toy_final_dump,
+        vis_pool,
+        write_grid_panels,
+        write_toy_panels,
     )
     from ardae_tpu_torch.core.annealing import annealing_func
     from ardae_tpu_torch.io.logging import logging
@@ -183,9 +191,12 @@ def run(argv=None):
             path=opt.path)
     optimizer = build_optimizer(opt.optimizer, model.parameters(), opt.lr,
                                 beta1=opt.beta1, momentum=opt.momentum)
-    state = create_train_state(model, optimizer)
+    state = create_train_state(model, optimizer, weight_avg=opt.weight_avg)
     cfg = VAEStepConfig(loss_scale=1.0 / float(opt.nchannels * opt.nheight
-                                               * opt.nheight))
+                                               * opt.nheight),
+                        weight_avg=opt.weight_avg,
+                        weight_avg_start=opt.weight_avg_start,
+                        weight_avg_decay=opt.weight_avg_decay)
 
     def beta_fn(step):
         return annealing_func(opt.beta_init, opt.beta_fin, opt.beta_annealing, step)
@@ -202,7 +213,7 @@ def run(argv=None):
 
     def evaluate(split, tag):
         elbo, logprob = evaluate_iwae_vae(
-            state.model, splits[split], opt.iws_samples,
+            state.eval_model, splits[split], opt.iws_samples,
             eval_generator(opt.seed, tag, device), binarize=binarize,
             batch=opt.eval_batch_size)
         return [("elbo", "elbo", elbo), ("logprob (iws)", "logprob/iws", logprob)]
@@ -216,14 +227,52 @@ def run(argv=None):
                       "model/recon": m["recon_loss"], "model/kld": m["kld_loss"],
                       "model/beta": beta}
 
-    def final(writer):
-        from ardae_tpu_torch.models.vae.api import generate, reconstruct
+    from ardae_tpu_torch.models.vae import api as vae_api
+    from ardae_tpu_torch.utils.visualization import convert_npimage_torchimage
 
-        toy_final_dump(opt, state.model, train_np, reconstruct, generate, writer)
+    writer = run_info[4]
+    is_toy = opt.dataset in TOY_DATASETS
+    gt_latent = gt_latent_panel()
+
+    def visualize(state, i_ep):
+        """The JAX driver's panels (ardae_tpu/cli/vae.py:308-374): the
+        latent scatter and the ground-truth | latent heatmap, over the whole
+        vis pool (on MNIST in chunks of max(bs, 256) rows), and data | recon
+        | gen panels: scatter and heatmap on the toy data, sampled and mean
+        image grids on MNIST. Every draw comes from the generator of
+        (``--seed``, VIS_TAG, i_ep)."""
+        model, mode = state.eval_model, opt.train_mode
+        gen = eval_generator(opt.seed, (VIS_TAG, i_ep), device)
+        with torch.no_grad():
+            xs = vis_pool(opt, data_dev, binarize, gen)
+            if is_toy:
+                gen_x = vae_api.generate(model, xs.shape[0], generator=gen)[0]
+                out, _, lat = vae_api.reconstruct(model, xs, generator=gen)
+            else:
+                n_grid = min(opt.train_batch_size, xs.shape[0])
+                out, omu, _ = vae_api.reconstruct(model, xs[:n_grid], generator=gen)
+                gen_x, gmu, _ = vae_api.generate(model, n_grid, generator=gen)
+                step = max(opt.train_batch_size, 256)
+                lat = torch.cat([vae_api.reconstruct(model, xs[lo:lo + step],
+                                                     generator=gen)[2]
+                                 for lo in range(0, xs.shape[0], step)])
+        lat = lat.reshape(xs.shape[0], -1).cpu().numpy()
+        if is_toy:
+            write_toy_panels(writer, mode, i_ep, xs.cpu(), out.cpu(), gen_x.cpu())
+        scatter, latent = latent_panels(lat, 4 if is_toy else 6)
+        img = lambda *panels: convert_npimage_torchimage(np.concatenate(panels, axis=1))
+        writer.add_image(f"{mode}/latent/scatter", img(scatter), i_ep)
+        writer.add_image(f"{mode}/latent/heatmap", img(gt_latent, latent), i_ep)
+        if not is_toy:
+            write_grid_panels(writer, opt, i_ep, xs[:n_grid], out, omu, gen_x, gmu)
+        writer.flush()
+
+    def final(writer):
+        toy_final_dump(opt, state.eval_model, train_np, vae_api.reconstruct,
+                       vae_api.generate, writer)
 
     return run_pipeline(opt, state, generator, run_info, train_chunk, evaluate,
-                        log_train,
-                        final if opt.dataset in TOY_DATASETS else None)
+                        log_train, visualize, final if is_toy else None)
 
 
 if __name__ == "__main__":

@@ -7,6 +7,9 @@ or without the top ``"params"`` level) into the port module's
   * names: ``layers_3`` -> ``layers.3``, ``kernel`` -> ``weight``; every
     other name (``direction``, ``scale``, ``bias``, the split
     ``*_l0_row``/``*_l0_ctx`` layers) maps to itself;
+  * the MADE blocks of toy-maf (``flow0``, ``flow1``: ``w_in``, ``w_ctx``,
+    ``b_h``, ``w_m``, ``b_m``, ``w_a``, ``b_a``) keep flax's names and
+    (in, out) layout in the port (nn/made.py), so they cross as they are;
   * dense kernels and directions (in, out) -> (out, in);
   * conv kernels and directions HWIO -> OIHW; transposed-conv kernels HWIO
     -> (in, out, k, k), torch's ConvTranspose2d layout, with no spatial flip

@@ -5,7 +5,8 @@ One ``torch.save`` file per name (``checkpoint``, ``best-checkpoint``,
 ``final-checkpoint``) holds a dict of tensors and Python scalars only, so
 ``torch.load(weights_only=True)`` reads it on the card or on the CPU:
 ``TrainState.state_dict()`` (the model and its optimizer, the cdae and its
-optimizer where the state has them, the step), the training generator's
+optimizer where the state has them, the averaged model and its count under
+weight averaging, the step), the training generator's
 state, and the meta (``i_ep``, ``epoch``,
 ``batch_idx``, ``train_num_iters_per_epoch``, ``best_val_loss`` with -inf
 for none). The generator state makes a resumed run continue the same noise
@@ -21,6 +22,8 @@ import os
 import pickle
 
 import torch
+
+from ardae_tpu_torch.train.state import avg_copy
 
 # what torch.load raises on a partial or foreign file
 _UNREADABLE = (RuntimeError, EOFError, OSError, pickle.UnpicklingError)
@@ -115,7 +118,13 @@ def load_checkpoint(state, path, filename="checkpoint", generator=None):
     """Restore into ``state`` (and ``generator``) in place, every tensor
     onto the device of ``state``'s model. Returns (state, meta), or None
     when there is no checkpoint (the reference prints and goes on,
-    utils/msc.py:95-96)."""
+    utils/msc.py:95-96).
+
+    Where ``state`` and the file disagree on the weight-averaging slots, the
+    state follows the file, as the JAX twin's skeleton does: a state built
+    without them takes them from a run saved with averaging (widened), and
+    one built with them drops them for a run saved without (narrowed; it
+    then evaluates the live model). Any other mismatch raises."""
     target = _target(path, filename)
     device = next(state.model.parameters()).device
     rec = _read_with_recovery(target, device)
@@ -123,6 +132,14 @@ def load_checkpoint(state, path, filename="checkpoint", generator=None):
         print(f"=> no checkpoint found at '{target}'")
         return None
     payload, source = rec
+    saved_avg = "avg_model" in payload["state"]
+    if saved_avg and state.avg_model is None:
+        state.avg_model, state.avg_count = avg_copy(state.model), 0
+        print("=> checkpoint carries averaged params; widened the skeleton")
+    elif not saved_avg and state.avg_model is not None:
+        state.avg_model, state.avg_count = None, None
+        print("=> checkpoint has no averaged params; narrowed the skeleton"
+              " (evaluate with the live params)")
     state.load_state_dict(payload["state"])
     if generator is not None and payload["generator"] is not None:
         generator.set_state(payload["generator"].cpu())

@@ -1,10 +1,10 @@
 """Model factories keyed by the reference CLI names (JAX twin:
 ardae_tpu/models/registry.py). The port builds every implicit VAE name
 (``mlp-concat``, ``mnist-concat``, ``mnist-conv``, the ten resconv names
-and the seven aux ones), both cdae styles, and every baseline VAE name but
-``toy-maf`` (``toy``, ``mnist``, ``conv``, ``resconv(ct)`` and the aux
-``auxtoy``, ``auxmnist``, ``auxconv``, ``auxresconv(ct)``); ``toy-maf`` and
-``--cdae mlp`` raise NotImplementedError naming their ROADMAP item. Every build function puts the module
+and the seven aux ones), both cdae styles, and every baseline VAE name
+(``toy``, ``toy-maf``, ``mnist``, ``conv``, ``resconv(ct)`` and the aux
+``auxtoy``, ``auxmnist``, ``auxconv``, ``auxresconv(ct)``); ``--cdae mlp``
+raises NotImplementedError naming its ROADMAP item. Every build function puts the module
 on the card unless the caller asks for the CPU (``device="cpu"``); without
 a card that default raises rather than falling back."""
 
@@ -29,6 +29,7 @@ from ardae_tpu_torch.models.vae.aux import (
     ToyAuxVAE,
 )
 from ardae_tpu_torch.models.vae.conv import MNISTConvVAE
+from ardae_tpu_torch.models.vae.maf import ToyMAFVAE
 from ardae_tpu_torch.models.vae.mnist import MNISTVAE
 from ardae_tpu_torch.models.vae.resconv import MNISTResConvVAE
 from ardae_tpu_torch.models.vae.toy import ToyVAE
@@ -45,9 +46,7 @@ _RESCONV_ENC = {  # name -> (fc head, do_center)
 
 AUX_RESCONV_C = 450  # the aux resconv trunk's context width (JAX registry)
 
-_Q = "ROADMAP queue 1, "
 _LATER = {
-    "toy-maf": _Q + "slice 6 (item 14, nn/made.py + models/vae/maf.py)",
     # porting models/cdae/legacy.py (queue 1) will not make it build: both
     # drivers refuse --cdae mlp, as the JAX ones do
     "cdae mlp": ("the legacy reconstruction DAE, which no driver builds "
@@ -119,9 +118,12 @@ def build_vae_model(name, *, nchannels=1, nheight=28, z_dim=8, h_dim=300,
     heads always carry spm4). ``resconvct`` and ``auxresconvct`` centre
     their input and the others do not, as in the JAX registry (the
     reference driver centres neither, vae.py:233-249)."""
-    if name == "toy":
-        model = ToyVAE(input_dim=nchannels * nheight * nheight, h_dim=h_dim,
-                       z_dim=z_dim, nonlinearity=nonlin, num_hidden_layers=n_layers)
+    if name in ("toy", "toy-maf"):
+        # toy-maf: the JAX registry's conditional-MAF realization of a model
+        # the reference selects but never shipped (JAX registry.py:112-119)
+        make = ToyVAE if name == "toy" else ToyMAFVAE
+        model = make(input_dim=nchannels * nheight * nheight, h_dim=h_dim,
+                     z_dim=z_dim, nonlinearity=nonlin, num_hidden_layers=n_layers)
     elif name == "mnist":
         model = MNISTVAE(input_dim=nchannels * nheight * nheight, h_dim=h_dim,
                          z_dim=z_dim, nonlinearity=nonlin,

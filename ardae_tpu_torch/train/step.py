@@ -14,8 +14,9 @@
 PyTorch runs eagerly: the K-step chunk is a Python loop over steps, with the
 batch gather and the Bernoulli binarization on the device. Every random draw
 can be injected (``draws``); otherwise it comes from the explicit generator.
-The fp32 path only: bf16, weight averaging, remat and sample sharding wait
-(ROADMAP queue 1).
+After each step, ``update_weight_avg`` moves the averaged model (Polyak or
+SWA) in a few ``torch._foreach_*`` passes. The fp32 path only: bf16, remat
+and sample sharding wait (ROADMAP queue 1).
 """
 
 import dataclasses
@@ -50,6 +51,9 @@ class StepConfig:
     # res-style cdae, ops/fused_dsm_grad for a grad-style one); a config the
     # kernel does not cover raises instead of falling back
     use_kernels: bool = False
+    weight_avg: str = "none"  # none | polyak | swa
+    weight_avg_start: int = 1000
+    weight_avg_decay: float = 0.998
 
 
 def _randn(shape, generator, device, injected=None):
@@ -167,7 +171,39 @@ def one_step(state, cfg, cdae_batches, model_batch, beta, generator, draws=None)
     metrics.update(model_update(state.model, state.cdae, state.opt_model, cfg,
                                 model_batch, beta, generator, draws.get("model")))
     state.step += 1
+    update_weight_avg(state, cfg)
     return metrics
+
+
+@torch.no_grad()
+def update_weight_avg(state, cfg):
+    """The averaged model after a step (JAX: ``_update_weight_avg``,
+    reference ivae_ardae.py:559-565 via torchcontrib), in place, a few
+    ``torch._foreach_*`` passes over every parameter at once. Averaging has
+    started once the step just counted reaches ``cfg.weight_avg_start``;
+    before that the average is the live model. Polyak: avg = d * avg + (1 -
+    d) * p, in JAX's order of operations; SWA: the running mean avg += (p -
+    avg) / count over the iterates since the start. No-op without an
+    averaging slot."""
+    if cfg.weight_avg == "none" or state.avg_model is None:
+        return
+    avg = list(state.avg_model.parameters())
+    live = [p.detach() for p in state.model.parameters()]
+    if state.step < cfg.weight_avg_start:
+        torch._foreach_copy_(avg, live)
+        return
+    state.avg_count += 1
+    if cfg.weight_avg == "polyak":
+        d = cfg.weight_avg_decay
+        part = torch._foreach_mul(live, 1.0 - d)
+        torch._foreach_mul_(avg, d)
+        torch._foreach_add_(avg, part)
+    elif cfg.weight_avg == "swa":
+        diff = torch._foreach_sub(live, avg)
+        torch._foreach_div_(diff, float(state.avg_count))
+        torch._foreach_add_(avg, diff)
+    else:
+        raise ValueError(f"unknown weight averaging {cfg.weight_avg!r}")
 
 
 def train_chunk(state, cfg, data, cdae_idx, model_idx, generator, beta_fn,

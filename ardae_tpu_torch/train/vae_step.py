@@ -5,8 +5,9 @@ One optimizer; the loss is scaled by ``loss_scale`` (1/(C*H*W) in the
 driver, reference vae.py:410-411) before the backward, and the scaled loss
 is the one reported. beta comes from the driver's annealing schedule.
 PyTorch runs eagerly: the K-step chunk is a Python loop with the batch
-gather and the Bernoulli binarization on the device. Weight averaging waits
-(ROADMAP queue 1, slice 6).
+gather and the Bernoulli binarization on the device. After each step the
+averaged model moves as in the joint step (train/step.py
+``update_weight_avg``; JAX cli/vae.py:248-250).
 """
 
 import dataclasses
@@ -15,11 +16,15 @@ import torch
 
 from ardae_tpu_torch.data.loader import gather_batches
 from ardae_tpu_torch.models.vae.api import vae_loss
+from ardae_tpu_torch.train.step import update_weight_avg
 
 
 @dataclasses.dataclass(frozen=True)
 class VAEStepConfig:
     loss_scale: float = 1.0
+    weight_avg: str = "none"  # none | polyak | swa
+    weight_avg_start: int = 1000
+    weight_avg_decay: float = 0.998
 
 
 def vae_step(state, cfg, batch, beta, generator, eps=None):
@@ -34,6 +39,7 @@ def vae_step(state, cfg, batch, beta, generator, eps=None):
     loss.backward()
     state.opt_model.step()
     state.step += 1
+    update_weight_avg(state, cfg)
     recon, kld = terms["recon"].detach(), terms["kld"].detach()
     return {"loss": loss.detach(), "recon_loss": recon, "kld_loss": kld,
             "elbo": -(recon + kld)}

@@ -108,8 +108,34 @@ Phases (each failure exits non-zero):
      item;
   7b. drives cli.vae --model toy on the 25-gaussians data of 5e (z 2, h
      256, 2 layers, bs 512): 6 steps and the toy final dump, no launch.
+  8. runs the published lines flag for flag, only the depth cut, with the
+     drivers' periodic visualization and weight averaging on. Each run
+     replaces the drivers' writer with a recording one (make_writer in
+     cli/common.py) and checks its tags against VIS_TAGS (the JAX drivers'
+     panels; tests/test_torch_visualization.py holds the lists against
+     them), every image CHW float32 in [0, 1], every value finite, and how
+     many visualizations ran (each one's seconds printed); a monitor
+     around update_weight_avg checks that the averaged model equals the
+     live one before the start and differs after it. 8a: the flagship
+     line (:35) with --use-kernels --m-weight-avg polyak
+     --m-weight-avg-start 2 --vis-interval 2, evals and checkpoints every 2
+     steps, 6 steps: 2 fwd + 2 bwd res launches a step, the three val
+     IWS-256 evals on the averaged model, then the checkpoint roundtrip with
+     the averaging slot (bit for bit, card and CPU, its MiB printed); 8b:
+     implicit conv (:41) with --use-kernels --m-weight-avg swa
+     --m-weight-avg-start 2 --vis-interval 2, 6 steps, 1 + 1 grad launches
+     a step; 8c: the 25-gaussians line of 5e with its --vis-interval 100
+     cut to 3, 6 steps with --use-kernels, the final panels and the dump;
+     8d: the resconv baseline (:16) with --weight-avg polyak
+     --weight-avg-start 2 --vis-interval 2, and cli.vae --model toy-maf on
+     5e's data with --vis-interval 2 and the dump, 6 steps each, no
+     launch. 8a and 8b time one update_weight_avg call (CUDA events,
+     median of 21); 8e drives the flagship line as phase 5 does, 10 steps
+     with --use-kernels, without averaging and with Polyak from step 0, in
+     the turns none, polyak, polyak, none, and prints each turn's steady
+     ms/step (steps 5-10).
 Then it prints the kernels' JSON line (each kernel's launches over the
-main path's runs, 5-5i but 5c, and by line under "launched_by"; and at its
+main path's runs, 5-5i but 5c, and 8a-8c, and by line under "launched_by"; and at its
 first line's shape its error, times, FLOP,
 launches per step and bound, the grad kernel's 25-gaussians shape beside
 them under "at_25-gaussians"; the bound is the larger of
@@ -267,6 +293,43 @@ BASELINE_MODELS = {  # build_vae_model arguments of each line
     "auxmnist": dict(name="auxmnist", z_dim=32, h_dim=300, n_layers=2, n_dim=100,
                      nonlin="softplus"),
 }
+# phase 8: the published lines' own flags, depth cut: 8a the flagship
+# (:35) with Polyak from step 2, panels every 2 steps, evals and checkpoints
+# every 2 steps (no test eval); 8b implicit conv (:41) with SWA from step 2
+# and panels every 2; 8c 25-gaussians with its --vis-interval 100 cut to 3;
+# 8d the resconv baseline (:16) with Polyak and panels every 2, and cli.vae
+# --model toy-maf on 8c's data with panels every 2
+POLYAK = with_flags(FLAGSHIP_ARGS, m_weight_avg="polyak", m_weight_avg_start="2",
+                    vis_interval="2")
+SWA = with_flags(IMPLICIT_CONV_ARGS, m_weight_avg="swa", m_weight_avg_start="2",
+                 vis_interval="2")
+TOY_VIS = TOY_ARGS + ["--vis-interval", "3"]
+BASELINE_POLYAK = with_flags(BASELINE_LINES["resconv"], weight_avg="polyak",
+                             weight_avg_start="2") + ["--vis-interval", "2"]
+TOY_MAF_ARGS = with_flags(TOY_VAE_ARGS, model="toy-maf") + ["--vis-interval", "2"]
+# the tags of one visualization (the JAX drivers' panels, at train mode;
+# tests/test_torch_visualization.py holds each list against the JAX driver):
+# by driver and data, the images and histograms and the encoder scalars
+_IVAE_VIS = {("scalar", "train/enc/logvar_qz/mean/step"),
+             ("scalar", "train/enc/logvar_qz/median/step"),
+             ("histogram", "train/enc/logvar_qz/hist/step"),
+             ("histogram", "traintrain/enc/logvar_qz/hist/item0/step"),
+             ("histogram", "traintrain/enc/logvar_qz/hist/item1/step"),
+             ("image", "train/latent/scatter"), ("image", "train/gt_latent/heatmap"),
+             ("image", "train/latent/heatmap"), ("image", "train/alllatent/heatmap")}
+_TOY_PANELS = {("image", "train/data-recon-gen/scatter"),
+               ("image", "train/data-recon-gen/heatmap")}
+_GRIDS = {("image", "train/data-recon-gen/sample"),
+          ("image", "train/data-recon-gen/mean")}
+_LATENT = {("image", "train/latent/scatter"), ("image", "train/latent/heatmap")}
+VIS_TAGS = {
+    ("ivae", "mnist"): _IVAE_VIS | _GRIDS,
+    ("ivae", "toy"): _IVAE_VIS | _TOY_PANELS | {("image", "train/gen/heatmap")},
+    ("vae", "mnist"): _LATENT | _GRIDS,
+    ("vae", "toy"): _LATENT | _TOY_PANELS,
+}
+# the toy final dump's two images
+DUMP_TAGS = {("image", "test/data-recon-gen/heatmap"), ("image", "test/latent/heatmap")}
 PIPELINE_ARGS = ["--use-kernels", "--log-interval", "2", "--eval-iws-interval", "2",
                  "--ckpt-interval", "2", "--eval-batch-size", "128"]
 IWS_ATOL = 1e-3   # nats, per item, card against CPU
@@ -534,7 +597,7 @@ def drive_line(torch, dev, k, kernels, line_args, what, card, steps=STEPS,
     skipping the test eval); every launch counter is 0 just before and read
     just after. The driver must log the cdae context's width that
     context_dim_for gives. Returns (this run's launches, the trained
-    state)."""
+    state, its ms/step per log interval)."""
     from ardae_tpu_torch.cli import ivae_ardae
     from ardae_tpu_torch.models.ivae import api as ivae_api
     from ardae_tpu_torch.models.registry import (
@@ -608,7 +671,7 @@ def drive_line(torch, dev, k, kernels, line_args, what, card, steps=STEPS,
           f"interval {ms_step}; steady {ms_step[-1]:.2f} ms/step = "
           f"{1000.0 / ms_step[-1]:.3f} steps/s; kernel launches {launches}; "
           f"losses finite | {card}", flush=True)
-    return launches, state
+    return launches, state, ms_step
 
 
 def check_dump(log, line_args, what):
@@ -707,15 +770,18 @@ def fresh_like(torch, state, device):
                 p.zero_()
         # the load restores the hyperparameters with the state
         parts += [m, type(opt)(m.parameters(), opt.defaults["lr"])]
-    return create_train_state(*parts)
+    return create_train_state(
+        *parts, weight_avg="none" if state.avg_model is None else "polyak")
 
 
 def state_tensors(state):
     """Every tensor and scalar of a TrainState, by name."""
     sd = state.state_dict()
     out = {"step": sd["step"]}
-    for part in ("model", "cdae"):
+    for part in ("model", "cdae", "avg_model"):
         out.update({f"{part}.{k}": v for k, v in sd.get(part, {}).items()})
+    if "avg_count" in sd:
+        out["avg_count"] = sd["avg_count"]
     for part in ("opt_model", "opt_cdae"):
         if part in sd:
             out.update({f"{part}.{i}.{n}": x for i, st in sd[part]["state"].items()
@@ -874,8 +940,8 @@ def drive_aux(torch, dev, res, grad, kernels, card, launches):
                 (grad, "phase 5h", "auxmnist", AUX_LINES["auxmnist"], STEPS),
                 (res, "phase 5i", "auxresconvct-clip", AUX_CLIP_ARGS, HEAD_STEPS)]
         for k, what, line, args, steps in runs:
-            counts, state = drive_line(torch, dev, k, kernels, args, what, card,
-                                       steps=steps, data_root=data)
+            counts, state, _ = drive_line(torch, dev, k, kernels, args, what, card,
+                                          steps=steps, data_root=data)
             launches[line] = counts
             if line == "auxmnist":
                 trained = state
@@ -1060,6 +1126,257 @@ def drive_baseline(torch, dev, kernels, card):
     torch.cuda.empty_cache()
 
 
+class RecordingWriter:
+    """Phase 8's writer, patched into the drivers' make_writer: keeps what
+    a run hands it, (kind, tag, value as numpy), in order."""
+
+    def __init__(self):
+        self.items = []
+
+    def add_scalar(self, tag, value, step=None):
+        self.items.append(("scalar", tag, _numpy(value)))
+
+    def add_histogram(self, tag, values, step=None):
+        self.items.append(("histogram", tag, _numpy(values)))
+
+    def add_image(self, tag, image, step=None):
+        self.items.append(("image", tag, _numpy(image)))
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+    def check(self, kind, what):
+        """The visualization's tags (and a toy run's dump images) against
+        VIS_TAGS; each image CHW float32 in [0, 1], every value finite.
+        Returns the number of images."""
+        import numpy as np
+
+        want = VIS_TAGS[kind] | (DUMP_TAGS if kind[1] == "toy" else set())
+        got = {(k, tag) for k, tag, _ in self.items
+               if k != "scalar" or "/enc/" in tag}
+        if got != want:
+            fail(f"{what}: writer tags {sorted(got ^ want)} differ from the "
+                 "JAX driver's")
+        for k, tag, v in self.items:
+            if not np.isfinite(v).all():
+                fail(f"{what}: {k} {tag} is not finite")
+            if k == "image" and (v.dtype != np.float32 or v.ndim != 3
+                                 or v.min() < 0.0 or v.max() > 1.0):
+                fail(f"{what}: image {tag} {v.dtype} {v.shape} "
+                     f"[{v.min()}, {v.max()}] is not CHW float32 in [0, 1]")
+        return sum(k == "image" for k, _, _ in self.items)
+
+
+def _numpy(v):
+    import numpy as np
+
+    return np.asarray(v.detach().cpu() if hasattr(v, "detach") else v)
+
+
+class AvgMonitor:
+    """Wraps update_weight_avg where the two step modules call it: after
+    each call, the step and the largest |averaged - live| parameter, kept
+    on the card until the run ends (a few fused launches a step)."""
+
+    def __init__(self, torch):
+        from ardae_tpu_torch.train import step, vae_step
+
+        self.torch, self.mods, self.orig = torch, (step, vae_step), step.update_weight_avg
+        self.seen = []
+
+    def __enter__(self):
+        torch = self.torch
+
+        def wrapped(state, cfg):
+            self.orig(state, cfg)
+            if state.avg_model is not None:
+                live = [p.detach() for p in state.model.parameters()]
+                diff = torch._foreach_sub(list(state.avg_model.parameters()), live)
+                top = torch.stack(torch._foreach_norm(diff, float("inf"))).max()
+                self.seen.append((state.step, top))
+
+        for m in self.mods:
+            m.update_weight_avg = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.update_weight_avg = self.orig
+
+    def check(self, state, start, steps, what, swa=False):
+        """The average equals the live model at every step counted before
+        ``start`` and differs from it from ``start`` on; SWA's first average
+        is the live model itself, a + (p - a), which rounding leaves within
+        1e-5 of p, so it differs from ``start + 1`` on."""
+        seen = [(step, float(top)) for step, top in self.seen]
+        differs = start + int(swa)
+        if [s for s, _ in seen] != list(range(1, steps + 1)):
+            fail(f"{what}: averaged at steps {[s for s, _ in seen]}")
+        for step, top in seen:
+            if swa and step == start:
+                ok = top <= 1e-5
+            else:
+                ok = (top == 0.0) == (step < differs)
+            if not ok:
+                fail(f"{what}: at step {step} max |avg - live| = {top:.3e} "
+                     f"(averaging starts at {start})")
+        if state.avg_count != steps - start + 1:
+            fail(f"{what}: avg_count {state.avg_count}, expected {steps - start + 1}")
+        print(f"{what}: the averaged model equals the live one at steps "
+              f"1-{differs - 1} and differs from step {differs} on (max |avg - live| "
+              f"{', '.join(f'{t:.2e}' for _, t in seen)}); avg_count "
+              f"{state.avg_count}", flush=True)
+
+
+def published_run(torch, kernels, k, driver, argv, what, kind, steps, vis_every):
+    """One phase-8 run: ``argv`` through ``driver`` with the recording
+    writer and the averaging monitor in place and every launch counter at
+    0 just before; kernel ``k`` (None: no kernel) must launch its updates
+    a step and nothing else may. Checks the logged losses, the writer's
+    tags and values, and the visualizations' count; prints their seconds.
+    Returns (state, path, launches, log lines, ms/step per log interval,
+    monitor, models the IWS eval was given)."""
+    import ardae_tpu_torch.cli.common as common
+
+    rec, evaluated = RecordingWriter(), []
+    real_writer, real_eval = common.make_writer, common.evaluate_iws_ivae
+
+    def recorded_eval(model, *a, **kw):
+        evaluated.append(model)
+        return real_eval(model, *a, **kw)
+
+    common.make_writer = lambda path: rec
+    common.evaluate_iws_ivae = recorded_eval
+    try:
+        with AvgMonitor(torch) as monitor:
+            state, path, launches, lines = pipeline_run(
+                torch, kernels, None, argv, what, driver=driver)
+    finally:
+        common.make_writer, common.evaluate_iws_ivae = real_writer, real_eval
+    expected = {n: (steps * k["updates"] if k and n in k["fn"].launches else 0)
+                for n in launches}
+    if launches != expected:
+        fail(f"{what}: kernel launches {launches}, expected {expected}")
+    iters = [ln for ln in lines if ln.startswith("| iter ")]
+    values = [float(v) for ln in iters for v in re.findall(
+        r"\| (?:loss(?: \(\w+\))?|elbo) (\S+)", ln)]
+    if len(iters) != steps // 2 or not values or not all(map(math.isfinite, values)):
+        fail(f"{what}: logged {len(iters)} iterations, losses {values}")
+    ms = [float(re.search(r"ms/step\s+(\S+)", ln).group(1)) for ln in iters]
+    n_images = rec.check(kind, what)
+    vis = [float(re.search(r"sec\s+(\S+)", ln).group(1))
+           for ln in lines if ln.startswith("| vis ")]
+    n_vis = steps // vis_every + (kind[1] == "toy")
+    if len(vis) != n_vis:
+        fail(f"{what}: {len(vis)} visualizations logged, expected {n_vis}")
+    print(f"{what}: {len(vis)} visualizations ({n_images} images, tags as the "
+          f"JAX driver's, finite, in [0, 1]) of {vis} s; ms/step per log "
+          f"interval {ms}; kernel launches {launches}", flush=True)
+    return state, path, launches, lines, ms, monitor, evaluated
+
+
+def time_update(torch, state, mode, what, card):
+    """One update_weight_avg call on the trained state, CUDA events,
+    median of 21 (averaging started)."""
+    from ardae_tpu_torch.train.step import StepConfig, update_weight_avg
+
+    cfg = StepConfig(weight_avg=mode, weight_avg_start=0)
+    ms = time_ms(torch, lambda: update_weight_avg(state, cfg), reps=21)
+    params = list(state.model.parameters())
+    print(f"{what}: one {mode} update over {len(params)} tensors, "
+          f"{sum(p.numel() for p in params):,} parameters: {ms:.3f} ms (CUDA "
+          f"events, median of 21) | {card}", flush=True)
+
+
+def drive_published(torch, dev, res, grad, kernels, card, by_line, ms_step):
+    """Phase 8: the published lines run flag for flag (depth cut) with
+    panels and weight averaging on; each main-path run's launches go into
+    ``by_line``. 8a the flagship with Polyak, evals and checkpoints every 2
+    steps; 8b implicit conv with SWA; 8c 25-gaussians; 8d the resconv
+    baseline with Polyak and the toy-maf baseline."""
+    from ardae_tpu_torch.cli import ivae_ardae, vae
+
+    with tempfile.TemporaryDirectory() as tmp:
+        where = ["--cache", os.path.join(tmp, "exp"),
+                 "--data-root", os.path.join(tmp, "data")]
+        run = ["--max-iters", str(STEPS)] + where
+        dump = [a for a in SMOKE_ARGS if a != "--skip-final-test-eval"]
+
+        what = "phase 8a flagship polyak"
+        argv = POLYAK + PIPELINE_ARGS + ["--no-resume", "--skip-final-test-eval"] + run
+        state, path, by_line["flagship-polyak"], lines, ms, mon, evaluated = \
+            published_run(torch, kernels, res, ivae_ardae, argv, what,
+                          ("ivae", "mnist"), STEPS, 2)
+        mon.check(state, 2, STEPS, what)
+        vals = [float(re.search(r"logprob \(iws\) (\S+)", ln).group(1))
+                for ln in lines if ln.startswith("| val")]
+        if len(vals) != 3 or not all(math.isfinite(v) and v < 0 for v in vals):
+            fail(f"{what}: val IWS {vals}")
+        if len(evaluated) != 3 or any(m is not state.avg_model for m in evaluated):
+            fail(f"{what}: the val IWS did not run on the averaged model")
+        saves = [ln.strip() for ln in lines if ln.startswith("| saved")]
+        print(f"{what}: val IWS-256 {vals} over 5,000 items each, on the averaged "
+              f"model; {saves}", flush=True)
+        checkpoint_roundtrip(torch, state, tmp, what)
+        ms_step["flagship-polyak"] = ms
+        time_update(torch, state, "polyak", what, card)
+        del state
+        torch.cuda.empty_cache()
+
+        what = "phase 8b implicit-conv swa"
+        argv = SWA + SMOKE_ARGS + ["--use-kernels"] + run
+        state, _, by_line["implicit-conv-swa"], _, ms, mon, _ = published_run(
+            torch, kernels, grad, ivae_ardae, argv, what, ("ivae", "mnist"), STEPS, 2)
+        mon.check(state, 2, STEPS, what, swa=True)
+        ms_step["implicit-conv-swa"] = ms
+        time_update(torch, state, "swa", what, card)
+        del state
+        torch.cuda.empty_cache()
+
+        what = "phase 8c 25-gaussians"
+        argv = TOY_VIS + dump + ["--use-kernels"] + run
+        state, _, by_line["25-gaussians-vis"], lines, _, _, _ = published_run(
+            torch, kernels, grad, ivae_ardae, argv, what, ("ivae", "toy"), STEPS, 3)
+        check_dump(lines, TOY_VIS, what)
+        del state
+
+        what = "phase 8d resconv baseline polyak"
+        state, _, _, _, ms, mon, _ = published_run(
+            torch, kernels, None, vae, BASELINE_POLYAK + SMOKE_ARGS + run, what,
+            ("vae", "mnist"), STEPS, 2)
+        mon.check(state, 2, STEPS, what)
+        del state
+        torch.cuda.empty_cache()
+
+        what = "phase 8d toy-maf"
+        state, _, _, lines, _, _, _ = published_run(
+            torch, kernels, None, vae, TOY_MAF_ARGS + dump + run, what,
+            ("vae", "toy"), STEPS, 2)
+        if type(state.model).__name__ != "ToyMAFVAE":
+            fail(f"{what}: built {type(state.model).__name__}")
+        check_dump(lines, TOY_MAF_ARGS, what)
+    # 8e: the flagship line without and with Polyak from step 0, nothing
+    # else changed, 10 steps in the turns none, polyak, polyak, none; each
+    # turn's steady ms/step is the mean of its last three log intervals
+    turns = []
+    for on in (False, True, True, False):
+        flags = with_flags(FLAGSHIP_ARGS, m_weight_avg="polyak" if on else "none",
+                           m_weight_avg_start="0")
+        ms = drive_line(torch, dev, res, kernels, flags,
+                        f"phase 8e flagship {'polyak' if on else 'none'}", card,
+                        steps=10)[2]
+        turns.append(round(statistics.mean(ms[2:]), 2))
+        torch.cuda.empty_cache()
+    print(f"phase 8e flagship steady ms/step (steps 5-10), turns none, polyak, "
+          f"polyak, none: {turns}; per log interval, phase 5 {ms_step['flagship']}, "
+          f"phase 8a {ms_step['flagship-polyak']}; implicit conv, phase 5b "
+          f"{ms_step['implicit-conv']}, phase 8b {ms_step['implicit-conv-swa']} "
+          f"| {card}", flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1138,13 +1455,14 @@ def main():
             torch.cuda.empty_cache()
 
     by_line = {}   # each main-path run's launches, by line
+    ms_step = {}   # and its ms/step per log interval
     for k, what, line, line_args, dump in (
             (res, "phase 5", "flagship", FLAGSHIP_ARGS, False),
             (grad, "phase 5b", "implicit-conv", IMPLICIT_CONV_ARGS, False),
             (grad, "phase 5d", "mnist-concat", MNIST_CONCAT_ARGS, False),
             (grad, "phase 5e", "25-gaussians", TOY_ARGS, True)):
-        by_line[line], _ = drive_line(torch, dev, k, kernels, line_args, what,
-                                      card, dump=dump)
+        by_line[line], _, ms_step[line] = drive_line(
+            torch, dev, k, kernels, line_args, what, card, dump=dump)
         torch.cuda.empty_cache()
 
     drive_heads(torch, dev, res, kernels, card)
@@ -1153,6 +1471,7 @@ def main():
     drive_baseline(torch, dev, kernels, card)
     drive_aux_baselines(torch, dev, kernels, card)
     drive_toy_baseline(torch, dev, kernels, card)
+    drive_published(torch, dev, res, grad, kernels, card, by_line, ms_step)
     launches = {n: sum(c[n] for c in by_line.values()) for k in kernels
                 for n in k["fn"].launches}
     launched_by = {n: {line: c[n] for line, c in by_line.items() if c[n]}

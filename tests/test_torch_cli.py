@@ -147,11 +147,9 @@ def test_resconv_heads_two_steps_on_cpu(tmp_path, model, head):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--vis-interval", "1"], "visualization"),
     (["--cdae-compute-dtype", "bfloat16"], "bf16"),
     (["--dp-devices", "2"], "dp-devices"),
     (["--profile-dir", "prof"], "profile"),
-    (["--m-weight-avg", "swa"], "weight-avg"),
 ])
 def test_unsupported_flags_raise(tmp_path, extra, what):
     with pytest.raises(NotImplementedError, match=what):
@@ -247,9 +245,9 @@ def test_unported_model_raises(tmp_path):
     args[args.index("mlp-res")] = "mlp"
     with pytest.raises(NotImplementedError, match="legacy"):
         ivae_ardae.run(args)
-    args = _args(tmp_path, "--m-weight-avg", "polyak")
+    args = _args(tmp_path, "--model-compute-dtype", "bfloat16")
     args[args.index("resconvct-res")] = "auxmnist"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, slice 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         ivae_ardae.run(args)
 
 

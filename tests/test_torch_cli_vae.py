@@ -164,15 +164,9 @@ def test_pipeline_eval_checkpoints_resume_and_final_mode(tmp_path, small_splits)
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--vis-interval", "1"], "visualization.*slice 6"),
     (["--model-compute-dtype", "bfloat16"], "bf16"),
     (["--dp-devices", "2"], "dp-devices.*slice 7"),
-    (["--weight-avg", "polyak"], "weight-avg.*slice 6"),
-    (["--model", "auxresconv", "--weight-avg", "swa"], "weight-avg.*slice 6"),
     (["--model", "auxtoy", "--model-compute-dtype", "bfloat16"], "bf16"),
-    (["--model", "toy-maf"], "toy-maf.*slice 6"),
-    (["--dataset", "25gaussians", "--model", "toy", "--vis-interval", "1"],
-     "visualization.*slice 6"),
 ])
 def test_unsupported_flags_raise(tmp_path, extra, what):
     with pytest.raises(NotImplementedError, match=what):

@@ -59,14 +59,13 @@ def test_resconv_baseline_centres_as_the_jax_registry(name, center):
 
 @pytest.mark.parametrize("build,name,slice_", [
     (build_vae_model, "auxmlp", "unknown model"),
-    (build_vae_model, "toy-maf", "slice 6"),
     (build_vae_model, "auxresconv-clip", "unknown model"),
     (build_ivae_model, "auxtoy", "unknown model"),
     (build_ivae_model, "toy", "unknown model")])
 def test_unported_models_raise_naming_their_slice(build, name, slice_):
-    """What still raises once the aux family builds: toy-maf names its
-    slice; an aux name of the other driver (auxmlp and the -clip names are
-    implicit only, auxtoy a baseline only) is unknown to that registry."""
+    """What still raises once every name builds: an aux name of the other
+    driver (auxmlp and the -clip names are implicit only, auxtoy a baseline
+    only) is unknown to that registry."""
     with pytest.raises(NotImplementedError, match=slice_):
         build(name, device="cpu")
 

@@ -99,18 +99,3 @@ def test_generate_and_reconstruct_follow_the_injected_draws():
     assert set(torch.unique(xs).tolist()) <= {0.0, 1.0}
     assert bool(((rprobs > 0) & (rprobs < 1)).all())
     assert torch.equal(rz0, mu) and bool((rx0 == 1).all())  # u = 0 < every p
-
-
-def test_unported_families_raise():
-    """The flow family raises naming its slice in every entry point; the aux
-    family goes to models/vae/aux.py (held in test_torch_aux_vae.py)."""
-    class Maf(torch.nn.Module):
-        family, likelihood = "flow_posterior", "gaussian"
-
-    x = torch.zeros(1, 2)
-    for call in (lambda: tapi.vae_loss(Maf(), x),
-                 lambda: tapi.logprob_iwae(Maf(), x, 2),
-                 lambda: tapi.reconstruct(Maf(), x),
-                 lambda: tapi.generate(Maf(), 1)):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            call()
