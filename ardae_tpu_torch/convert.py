@@ -10,7 +10,10 @@ or without the top ``"params"`` level) into the port module's
   * the MADE blocks of toy-maf (``flow0``, ``flow1``: ``w_in``, ``w_ctx``,
     ``b_h``, ``w_m``, ``b_m``, ``w_a``, ``b_a``) keep flax's names and
     (in, out) layout in the port (nn/made.py), so they cross as they are;
-  * dense kernels and directions (in, out) -> (out, in);
+  * dense kernels and the raw matrices of the weight-normalized, context
+    and bilinear layers (``direction``, ``cscale``, ``path1``, ``path2``)
+    (in, out) -> (out, in); their vectors (``scale``, ``cscalebias``,
+    ``bias``) cross as they are;
   * conv kernels and directions HWIO -> OIHW; transposed-conv kernels HWIO
     -> (in, out, k, k), torch's ConvTranspose2d layout, with no spatial flip
     (the JAX layer flips at use, nn/conv.py:108-117, and torch's transposed
@@ -32,6 +35,8 @@ import numpy as np
 import torch
 
 _LAYER = re.compile(r"^layers_(\d+)$")
+# leaves stored (in, out) in flax and (out, in) in the port, besides kernels
+_MATRICES = ("direction", "cscale", "path1", "path2")
 
 
 def _nhwc_to_nchw_perm(c, hgt, wid):
@@ -134,7 +139,7 @@ def flax_to_state_dict(params, module):
     for path, v in _flatten(tree):
         a = np.array(v, dtype=np.float32)
         key = _torch_key(path)
-        if path[-1] in ("kernel", "direction"):
+        if path[-1] == "kernel" or path[-1] in _MATRICES:
             a = _to_torch_kernel(key, a, transposed)
         out[key] = torch.from_numpy(np.ascontiguousarray(
             _apply_rule(key, a, rules, inverse=False)))
@@ -158,7 +163,7 @@ def state_dict_to_flax(state_dict, module):
                 path.append(segs[i])
                 i += 1
         leaf = segs[-1]
-        if leaf in ("weight", "direction"):
+        if leaf == "weight" or leaf in _MATRICES:
             a = _to_flax_kernel(key, a, transposed)
         if leaf == "weight":
             leaf = "kernel"

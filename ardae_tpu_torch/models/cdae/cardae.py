@@ -11,6 +11,11 @@ The trunk's first layer is split: ``{trunk}_l0_row`` takes the per-row input
 contribution is computed once per item, (bsz, h), and broadcast over the nz
 sample axis. Module and parameter names follow the flax twin
 (``dae``/``neglogprob``), so ``convert.py`` maps one tree onto the other.
+
+The unconditional variants of the notebook workloads (``dae_score`` /
+``dae_loss``; the ARDAE and DAE constructors) are the same module with
+``conditional=False``; a fixed-sigma one (``sigma_conditioned=False``)
+reads sigma only in the loss.
 """
 
 import torch
@@ -152,6 +157,36 @@ def cdae_loss(module, latent, context, std, generator=None, eps=None):
     return torch.mean((stdv * score + eps) ** 2)
 
 
+def _row_std(std, n, like):
+    """sigma as an (n, 1) column, from a scalar or an (n, 1) tensor."""
+    return torch.as_tensor(std, dtype=torch.float32, device=like.device).expand(n, 1)
+
+
+def dae_score(module, x, std):
+    """Unconditional score at ``x`` (n, input_dim), noise level ``std``
+    (scalar or (n, 1)) -> (n, input_dim) (reference resdae/mlp.py:82-90,
+    153-167; graddae/mlp.py:101-116, 186-207). The grad style builds no
+    graph back to the parameters: the score comes out detached."""
+    return _score(module, x, None, _row_std(std, x.shape[0], x),
+                  create_graph=False)
+
+
+def dae_loss(module, x, std, generator=None, eps=None, noise_type="gaussian"):
+    """Unconditional denoising score-matching loss
+    mse(sigma * score(x + sigma*eps), -eps), mean over every element;
+    ``eps`` (n, input_dim) injected or drawn from ``generator``. Gaussian
+    noise only, as ``cdae_loss`` (ROADMAP, "Not ported")."""
+    if noise_type != "gaussian":
+        raise NotImplementedError(
+            f"DSM noise {noise_type!r} is not ported (ROADMAP, \"Not ported\": "
+            "the Laplace and uniform DSM noise)")
+    x = x.to(torch.float32)
+    stdv = _row_std(std, x.shape[0], x)
+    eps = dsm_noise(x.shape, generator, eps, device=x.device)
+    score = _score(module, x + stdv * eps, None, stdv, create_graph=True)
+    return torch.mean((stdv * score + eps) ** 2)
+
+
 def MLPResCARDAE(input_dim, context_dim, h_dim=128, num_hidden_layers=1,
                  nonlinearity="tanh", enc_input=True, enc_ctx=True):
     return CARDAE(input_dim, h_dim, context_dim, num_hidden_layers,
@@ -162,3 +197,45 @@ def MLPGradCARDAE(input_dim, context_dim, h_dim=128, num_hidden_layers=1,
                   nonlinearity="tanh", enc_input=True, enc_ctx=True):
     return CARDAE(input_dim, h_dim, context_dim, num_hidden_layers,
                   nonlinearity, "grad", True, True, enc_input, enc_ctx)
+
+
+def MLPResCDAE(input_dim, context_dim, h_dim=128, num_hidden_layers=1,
+               nonlinearity="tanh", enc_input=True, enc_ctx=True):
+    """resdae ConditionalDAE, fixed sigma (reference resdae/mlp.py:170-284)."""
+    return CARDAE(input_dim, h_dim, context_dim, num_hidden_layers,
+                  nonlinearity, "res", True, False, enc_input, enc_ctx)
+
+
+def MLPGradCDAE(input_dim, context_dim, h_dim=128, num_hidden_layers=1,
+                nonlinearity="tanh", enc_input=True, enc_ctx=True):
+    """graddae ConditionalDAE, fixed sigma (reference graddae/mlp.py:210-339)."""
+    return CARDAE(input_dim, h_dim, context_dim, num_hidden_layers,
+                  nonlinearity, "grad", True, False, enc_input, enc_ctx)
+
+
+def MLPResARDAE(input_dim, h_dim=1000, num_hidden_layers=1, nonlinearity="tanh"):
+    """resdae ARDAE, unconditional (reference resdae/mlp.py:92-167)."""
+    return CARDAE(input_dim, h_dim, num_hidden_layers=num_hidden_layers,
+                  nonlinearity=nonlinearity, score_type="res",
+                  conditional=False, sigma_conditioned=True)
+
+
+def MLPGradARDAE(input_dim, h_dim=1000, num_hidden_layers=1, nonlinearity="tanh"):
+    """graddae ARDAE, unconditional (reference graddae/mlp.py:118-207)."""
+    return CARDAE(input_dim, h_dim, num_hidden_layers=num_hidden_layers,
+                  nonlinearity=nonlinearity, score_type="grad",
+                  conditional=False, sigma_conditioned=True)
+
+
+def MLPResDAE(input_dim, h_dim=1000, num_hidden_layers=1, nonlinearity="tanh"):
+    """resdae DAE, unconditional, fixed sigma (reference resdae/mlp.py:27-90)."""
+    return CARDAE(input_dim, h_dim, num_hidden_layers=num_hidden_layers,
+                  nonlinearity=nonlinearity, score_type="res",
+                  conditional=False, sigma_conditioned=False)
+
+
+def MLPGradDAE(input_dim, h_dim=1000, num_hidden_layers=1, nonlinearity="tanh"):
+    """graddae DAE, unconditional, fixed sigma (reference graddae/mlp.py:39-116)."""
+    return CARDAE(input_dim, h_dim, num_hidden_layers=num_hidden_layers,
+                  nonlinearity=nonlinearity, score_type="grad",
+                  conditional=False, sigma_conditioned=False)

@@ -33,7 +33,7 @@ class MNISTConcatEncoder(nn.Module):
                               use_nonlinearity_output=True)
         self.fc_l0_inp = Linear(h_dim, h_dim)
         self.fc_l0_eps = Linear(noise_dim, h_dim, use_bias=False)
-        self.fc_out = Linear(h_dim, z_dim, normal=True)
+        self.fc_out = Linear(h_dim, z_dim, normal_std=1.0)
 
     def forward(self, x, eps):
         """x (bsz, D), eps (bsz*nz, noise_dim) -> z (bsz, nz, z_dim)."""

@@ -48,7 +48,7 @@ class NormalHead(nn.Module):
         super().__init__()
         self.clip = clip
         self.mean_fn = Linear(in_features, features, xavier=xavier,
-                              normal=normal_mean)
+                              normal_std=1.0 if normal_mean else None)
         self.logvar_fn = Linear(in_features, features, xavier=xavier)
 
     def forward(self, h):

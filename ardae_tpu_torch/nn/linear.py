@@ -1,29 +1,55 @@
-"""Linear-family layers of the flagship slice (JAX twin: ardae_tpu/nn/linear.py).
+"""Linear-family layers (JAX twin: ardae_tpu/nn/linear.py; reference
+models/layers.py:25-473): plain, weight-normalized and residual linears, the
+FiLM-style context linears (scale(ctx) * Wx + bias(ctx)) and their
+softplus-gated and row-normalized variants, and the simplified bilinears.
 
-Weights are stored torch-style, (out_features, in_features). Weight-normalized
+Weights are stored torch-style, (out_features, in_features), raw matrices
+(``direction``, ``cscale``, ``path1``, ``path2``) too. Weight-normalized
 layers keep the torchkit parameterisation: ``direction`` (out, in), ``scale``
 (out,) and ``bias`` (out,); ``norm=True`` normalises each output row over its
-in-features.
+in-features (``_row_normalize``: dim 1 here, axis 0 of the twin's (in, out)
+kernels). Layers whose reference ``reset_parameters`` draws the output
+layer from N(0, 1) take ``gaussian=True``.
 """
+
+import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ardae_tpu_torch.nn.initializers import normal_, torch_default_, xavier_
+from ardae_tpu_torch.nn.initializers import (
+    normal_,
+    torch_default_,
+    uniform_,
+    xavier_,
+)
+
+
+def _row_normalize(w):
+    """Each output row of an (out, in) weight scaled to unit norm."""
+    return w / torch.sqrt(torch.sum(w * w, dim=1, keepdim=True))
+
+
+def _uniform_or_normal(w, fan_in, gaussian, generator):
+    """U(+-1/sqrt(fan_in)) (the torch-1.2 default), or N(0, 1)."""
+    if gaussian:
+        normal_(w, generator)
+    else:
+        uniform_(w, 1.0 / math.sqrt(fan_in), generator)
 
 
 class Linear(nn.Module):
     """nn.Linear with torch-1.2 default init, or xavier-uniform weight and
-    zero bias (``xavier=True``). ``normal=True`` then draws the weight from
-    N(0, 1) instead and leaves the bias as it was (the JAX twin's
-    ``kernel_init=normal_init(1.0)``)."""
+    zero bias (``xavier=True``). ``normal_std=s`` then draws the weight from
+    N(0, s^2) instead and leaves the bias as it was (the JAX twin's
+    ``kernel_init=normal_init(s)``)."""
 
     def __init__(self, in_features, out_features, use_bias=True, xavier=False,
-                 normal=False):
+                 normal_std=None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
-        self.xavier, self.normal = xavier, normal
+        self.xavier, self.normal_std = xavier, normal_std
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = (nn.Parameter(torch.empty(out_features))
                      if use_bias else None)
@@ -34,8 +60,9 @@ class Linear(nn.Module):
                     self.out_features, generator)
         else:
             torch_default_(self.weight, self.bias, self.in_features, generator)
-        if self.normal:
-            normal_(self.weight, generator)
+        if self.normal_std is not None:
+            with torch.no_grad():
+                normal_(self.weight, generator).mul_(self.normal_std)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -62,9 +89,7 @@ class WeightNormalizedLinear(nn.Module):
 
     def forward(self, x):
         # (x @ w) * scale, in the JAX twin's order of operations
-        d = self.direction
-        if self.norm:
-            d = d / torch.sqrt(torch.sum(d * d, dim=1, keepdim=True))
+        d = _row_normalize(self.direction) if self.norm else self.direction
         y = F.linear(x, d) * self.scale
         return y if self.bias is None else y + self.bias
 
@@ -94,3 +119,188 @@ class ResLinear(nn.Module):
         out = self.dot_h1(h)
         return out + (x if self.same_dim else self.dot_01(x))
 
+
+
+class ContextResLinear(nn.Module):
+    """ResLinear with an additive context branch (reference
+    models/layers.py:87-111): dot_h1(relu(dot_0h(x))) +
+    dot_c1(relu(dot_0c(ctx))) + (x if same_dim else dot_01(x)), every
+    product a WeightNormalizedLinear."""
+
+    def __init__(self, in_features, ctx_features, out_features, same_dim=False,
+                 norm=False):
+        super().__init__()
+        wn = lambda i: WeightNormalizedLinear(i, out_features, norm=norm)
+        self.same_dim = same_dim
+        self.dot_0h = wn(in_features)
+        self.dot_h1 = wn(out_features)
+        self.dot_0c = wn(ctx_features)
+        self.dot_c1 = wn(out_features)
+        if not same_dim:
+            self.dot_01 = wn(in_features)
+
+    def forward(self, x, ctx):
+        outi = self.dot_h1(F.relu(self.dot_0h(x)))
+        outc = self.dot_c1(F.relu(self.dot_0c(ctx)))
+        return outi + outc + (x if self.same_dim else self.dot_01(x))
+
+
+class ContextLinear(nn.Module):
+    """FiLM linear (reference models/layers.py:115-144):
+    (1 + cscale(ctx)) * (x @ direction) + cbias(ctx), cscale's weight
+    N(0, 0.005^2) and bias-free. ``gaussian``: direction and cbias's weight
+    N(0, 1) (reference models/ivae/toy.py:233-237)."""
+
+    def __init__(self, in_features, ctx_features, out_features, gaussian=False):
+        super().__init__()
+        self.in_features, self.gaussian = in_features, gaussian
+        self.direction = nn.Parameter(torch.empty(out_features, in_features))
+        self.cscale = Linear(ctx_features, out_features, use_bias=False,
+                             normal_std=0.005)
+        self.cbias = Linear(ctx_features, out_features,
+                            normal_std=1.0 if gaussian else None)
+
+    def init_params(self, generator):
+        _uniform_or_normal(self.direction, self.in_features, self.gaussian,
+                           generator)
+
+    def forward(self, x, ctx):
+        return (1.0 + self.cscale(ctx)) * F.linear(x, self.direction) + self.cbias(ctx)
+
+
+class ContextWeightNormalizedLinear(nn.Module):
+    """FiLM with a row-normalized context scale (reference
+    models/layers.py:176-215): (1 + ctx_scale * ctx @ rownorm(cscale)) *
+    (x @ direction) + cbias(ctx), cscale N(0, 0.005^2)."""
+
+    def __init__(self, in_features, ctx_features, out_features, in_norm=False,
+                 ctx_norm=True, ctx_scale=0.1):
+        super().__init__()
+        self.in_features = in_features
+        self.in_norm, self.ctx_norm, self.ctx_scale = in_norm, ctx_norm, ctx_scale
+        self.direction = nn.Parameter(torch.empty(out_features, in_features))
+        self.cscale = nn.Parameter(torch.empty(out_features, ctx_features))
+        self.cbias = Linear(ctx_features, out_features)
+
+    def init_params(self, generator):
+        uniform_(self.direction, 1.0 / math.sqrt(self.in_features), generator)
+        with torch.no_grad():
+            normal_(self.cscale, generator).mul_(0.005)
+
+    def forward(self, x, ctx):
+        if self.ctx_norm:
+            scale = 1.0 + self.ctx_scale * F.linear(ctx, _row_normalize(self.cscale))
+        else:
+            scale = 1.0 + F.linear(ctx, self.cscale)
+        w = _row_normalize(self.direction) if self.in_norm else self.direction
+        return scale * F.linear(x, w) + self.cbias(ctx)
+
+
+class ContextSoftPlusLinear(nn.Module):
+    """softplus(cscale(ctx)) * (x @ direction) + cbias(ctx), cscale's weight
+    N(0, 0.005^2) (reference models/layers.py:219-251)."""
+
+    def __init__(self, in_features, ctx_features, out_features):
+        super().__init__()
+        self.in_features = in_features
+        self.direction = nn.Parameter(torch.empty(out_features, in_features))
+        self.cscale = Linear(ctx_features, out_features, normal_std=0.005)
+        self.cbias = Linear(ctx_features, out_features)
+
+    def init_params(self, generator):
+        uniform_(self.direction, 1.0 / math.sqrt(self.in_features), generator)
+
+    def forward(self, x, ctx):
+        return F.softplus(self.cscale(ctx)) * F.linear(x, self.direction) + self.cbias(ctx)
+
+
+class ContextSoftPlusWeightNormalizedLinear(nn.Module):
+    """softplus(ctx @ rownorm(cscale) + cscalebias) * (x @ direction) +
+    cbias(ctx), cscale N(0, 1), cscalebias U(+-1/sqrt(ctx_features))
+    (reference models/layers.py:286-328)."""
+
+    def __init__(self, in_features, ctx_features, out_features, in_norm=False,
+                 ctx_norm=True):
+        super().__init__()
+        self.in_features, self.ctx_features = in_features, ctx_features
+        self.in_norm, self.ctx_norm = in_norm, ctx_norm
+        self.direction = nn.Parameter(torch.empty(out_features, in_features))
+        self.cscale = nn.Parameter(torch.empty(out_features, ctx_features))
+        self.cscalebias = nn.Parameter(torch.empty(out_features))
+        self.cbias = Linear(ctx_features, out_features)
+
+    def init_params(self, generator):
+        uniform_(self.direction, 1.0 / math.sqrt(self.in_features), generator)
+        normal_(self.cscale, generator)
+        uniform_(self.cscalebias, 1.0 / math.sqrt(max(self.ctx_features, 1)),
+                 generator)
+
+    def forward(self, x, ctx):
+        w_ctx = _row_normalize(self.cscale) if self.ctx_norm else self.cscale
+        scale = F.softplus(F.linear(ctx, w_ctx) + self.cscalebias)
+        w = _row_normalize(self.direction) if self.in_norm else self.direction
+        return scale * F.linear(x, w) + self.cbias(ctx)
+
+
+class SimplifiedBilinear(nn.Module):
+    """path1(x1) + path2(x2), path2 bias-free (reference
+    models/layers.py:398-413); ``gaussian``: both weights N(0, 1)."""
+
+    def __init__(self, in1_features, in2_features, out_features, use_bias=True,
+                 gaussian=False):
+        super().__init__()
+        std = 1.0 if gaussian else None
+        self.path1 = Linear(in1_features, out_features, use_bias=use_bias,
+                            normal_std=std)
+        self.path2 = Linear(in2_features, out_features, use_bias=False,
+                            normal_std=std)
+
+    def forward(self, x1, x2):
+        return self.path1(x1) + self.path2(x2)
+
+
+class WeightNormalizedSimplifiedBilinear(nn.Module):
+    """x1 @ path1 + x2 @ path2 + bias, each path optionally row-normalized
+    (reference models/layers.py:415-455; in1_norm=False, in2_norm=True);
+    ``gaussian``: path1 and path2 N(0, 1)."""
+
+    def __init__(self, in1_features, in2_features, out_features, use_bias=True,
+                 in1_norm=False, in2_norm=True, gaussian=False):
+        super().__init__()
+        self.in1_features, self.in2_features = in1_features, in2_features
+        self.in1_norm, self.in2_norm, self.gaussian = in1_norm, in2_norm, gaussian
+        self.path1 = nn.Parameter(torch.empty(out_features, in1_features))
+        self.path2 = nn.Parameter(torch.empty(out_features, in2_features))
+        self.bias = (nn.Parameter(torch.empty(out_features))
+                     if use_bias else None)
+
+    def init_params(self, generator):
+        _uniform_or_normal(self.path1, self.in1_features, self.gaussian, generator)
+        _uniform_or_normal(self.path2, self.in2_features, self.gaussian, generator)
+        if self.bias is not None:
+            uniform_(self.bias, 1.0 / math.sqrt(self.in1_features), generator)
+
+    def forward(self, x1, x2):
+        w1 = _row_normalize(self.path1) if self.in1_norm else self.path1
+        w2 = _row_normalize(self.path2) if self.in2_norm else self.path2
+        y = F.linear(x1, w1) + F.linear(x2, w2)
+        return y if self.bias is None else y + self.bias
+
+
+class StackedWeightNormalizedSimplifiedBilinear(nn.Module):
+    """fc(relu(main(x1, x2))), main a WeightNormalizedSimplifiedBilinear
+    with its default norms (reference models/layers.py:457-473, whose
+    constructor passes a ``norm=`` keyword the layer does not take and would
+    raise; the JAX twin and this port take the evident intent);
+    ``gaussian``: fc's weight N(0, 1)."""
+
+    def __init__(self, in1_features, in2_features, hid_features, out_features,
+                 use_bias=True, gaussian=False):
+        super().__init__()
+        self.main = WeightNormalizedSimplifiedBilinear(
+            in1_features, in2_features, hid_features, use_bias=use_bias)
+        self.fc = Linear(hid_features, out_features,
+                         normal_std=1.0 if gaussian else None)
+
+    def forward(self, x1, x2):
+        return self.fc(F.relu(self.main(x1, x2)))

@@ -5,24 +5,36 @@ followed by one output layer ``fc``; ``use_nonlinearity_output`` applies the
 activation after fc. Unlike flax, torch needs the input width up front.
 ``MLP(xavier=True)`` is the JAX ``_XavierMLP`` (models/ivae/mnist.py:20):
 xavier-uniform weights and zero biases in every layer.
-``ContextConcatMLP`` draws its output layer's weight from N(0, 1) and
-leaves its bias at the default (the reference's reset_parameters, e.g.
-models/ivae/toy.py:146-147), with no output activation: the form its one
-user, the ``concat`` toy encoder, builds. The other context MLPs of the toy
-encoders wait (ROADMAP queue 1).
+``gaussian_out_init=True`` draws the output layer's weights from N(0, 1)
+and leaves its biases at the default (the reference's reset_parameters,
+e.g. models/ivae/toy.py:146-147); ``ContextConcatMLP`` does by default,
+with no output activation: the form the ``concat`` toy encoder builds. The context MLPs feed the context to every layer; each is one of
+the toy encoders' fusions (models/ivae/toy.py).
 """
 
 import torch
 import torch.nn as nn
 
 from ardae_tpu_torch.nn.activations import get_nonlinear_func
-from ardae_tpu_torch.nn.linear import Linear, ResLinear
+from ardae_tpu_torch.nn.linear import (
+    ContextLinear,
+    ContextResLinear,
+    ContextSoftPlusLinear,
+    ContextSoftPlusWeightNormalizedLinear,
+    ContextWeightNormalizedLinear,
+    Linear,
+    ResLinear,
+    SimplifiedBilinear,
+    StackedWeightNormalizedSimplifiedBilinear,
+    WeightNormalizedLinear,
+    WeightNormalizedSimplifiedBilinear,
+)
 
 
 class MLP(nn.Module):
     def __init__(self, input_dim, hidden_dim, output_dim, nonlinearity="relu",
                  num_hidden_layers=1, use_nonlinearity_output=False,
-                 xavier=False):
+                 xavier=False, gaussian_out_init=False):
         super().__init__()
         self.afun = get_nonlinear_func(nonlinearity)
         self.use_nonlinearity_output = use_nonlinearity_output
@@ -30,7 +42,33 @@ class MLP(nn.Module):
         self.layers = nn.ModuleList(
             Linear(dims[i], dims[i + 1], xavier=xavier)
             for i in range(num_hidden_layers))
-        self.fc = Linear(dims[-1], output_dim, xavier=xavier)
+        self.fc = Linear(dims[-1], output_dim, xavier=xavier,
+                         normal_std=1.0 if gaussian_out_init else None)
+
+    def forward(self, x):
+        h = x.reshape(x.shape[0], -1)
+        for layer in self.layers:
+            h = self.afun(layer(h))
+        out = self.fc(h)
+        return self.afun(out) if self.use_nonlinearity_output else out
+
+
+class WNMLP(nn.Module):
+    """MLP of WeightNormalizedLinear layers, row-normalized but for the
+    output layer (unless ``use_norm_output``)."""
+
+    def __init__(self, input_dim, hidden_dim, output_dim, nonlinearity="relu",
+                 num_hidden_layers=1, use_nonlinearity_output=False,
+                 use_norm_output=False):
+        super().__init__()
+        self.afun = get_nonlinear_func(nonlinearity)
+        self.use_nonlinearity_output = use_nonlinearity_output
+        dims = [input_dim] + [hidden_dim] * num_hidden_layers
+        self.layers = nn.ModuleList(
+            WeightNormalizedLinear(dims[i], dims[i + 1])
+            for i in range(num_hidden_layers))
+        self.fc = WeightNormalizedLinear(dims[-1], output_dim,
+                                         norm=use_norm_output)
 
     def forward(self, x):
         h = x.reshape(x.shape[0], -1)
@@ -71,14 +109,15 @@ class ContextConcatMLP(nn.Module):
     included (reference models/layers.py:681-724)."""
 
     def __init__(self, input_dim, context_dim, hidden_dim, output_dim,
-                 nonlinearity="relu", num_hidden_layers=1):
+                 nonlinearity="relu", num_hidden_layers=1, gaussian_out_init=True):
         super().__init__()
         self.afun = get_nonlinear_func(nonlinearity)
         dims = [input_dim] + [hidden_dim] * num_hidden_layers
         self.layers = nn.ModuleList(
             Linear(dims[i] + context_dim, dims[i + 1])
             for i in range(num_hidden_layers))
-        self.fc = Linear(dims[-1] + context_dim, output_dim, normal=True)
+        self.fc = Linear(dims[-1] + context_dim, output_dim,
+                         normal_std=1.0 if gaussian_out_init else None)
 
     def forward(self, x, ctx):
         h = x.reshape(x.shape[0], -1)
@@ -86,3 +125,110 @@ class ContextConcatMLP(nn.Module):
         for layer in self.layers:
             h = self.afun(layer(torch.cat([h, ctx], dim=1)))
         return self.fc(torch.cat([h, ctx], dim=1))
+
+
+class ContextResMLP(nn.Module):
+    """Stack of ContextResLinear blocks, the context fed to each."""
+
+    def __init__(self, input_dim, context_dim, hidden_dim, output_dim,
+                 nonlinearity="relu", num_hidden_layers=1,
+                 use_nonlinearity_output=False, use_norm=False,
+                 use_norm_output=False):
+        super().__init__()
+        self.afun = get_nonlinear_func(nonlinearity)
+        self.use_nonlinearity_output = use_nonlinearity_output
+        blocks, prev = [], input_dim
+        for _ in range(num_hidden_layers):
+            blocks.append(ContextResLinear(prev, context_dim, hidden_dim,
+                                           same_dim=prev == hidden_dim,
+                                           norm=use_norm))
+            prev = hidden_dim
+        self.layers = nn.ModuleList(blocks)
+        self.fc = ContextResLinear(prev, context_dim, output_dim,
+                                   same_dim=prev == output_dim,
+                                   norm=use_norm_output)
+
+    def forward(self, x, ctx):
+        h = x.reshape(x.shape[0], -1)
+        ctx = ctx.reshape(ctx.shape[0], -1)
+        for block in self.layers:
+            h = self.afun(block(h, ctx))
+        out = self.fc(h, ctx)
+        return self.afun(out) if self.use_nonlinearity_output else out
+
+
+class _ContextLayerMLP(nn.Module):
+    """``num_hidden_layers`` context layers of width ``hidden_dim`` and an
+    output one ``fc``, each taking (h, ctx); a subclass names the layer."""
+
+    def __init__(self, input_dim, context_dim, hidden_dim, output_dim,
+                 nonlinearity="relu", num_hidden_layers=3,
+                 use_nonlinearity_output=False, gaussian_out_init=False):
+        super().__init__()
+        self.afun = get_nonlinear_func(nonlinearity)
+        self.use_nonlinearity_output = use_nonlinearity_output
+        self.hidden_dim, self.gaussian_out_init = hidden_dim, gaussian_out_init
+        dims = [input_dim] + [hidden_dim] * num_hidden_layers
+        self.layers = nn.ModuleList(
+            self._layer(dims[i], context_dim, dims[i + 1], False)
+            for i in range(num_hidden_layers))
+        self.fc = self._layer(dims[-1], context_dim, output_dim, True)
+
+    def _layer(self, in_dim, ctx_dim, out_dim, is_out):
+        raise NotImplementedError
+
+    def _gaussian(self, is_out):
+        return is_out and self.gaussian_out_init
+
+    def forward(self, x, ctx):
+        h = x.reshape(x.shape[0], -1)
+        ctx = ctx.reshape(ctx.shape[0], -1)
+        for layer in self.layers:
+            h = self.afun(layer(h, ctx))
+        out = self.fc(h, ctx)
+        return self.afun(out) if self.use_nonlinearity_output else out
+
+
+class ContextScaleMLP(_ContextLayerMLP):
+    """FiLM at every layer (reference models/layers.py:726-778); the
+    Gaussian output layer draws direction and cbias's weight from N(0, 1)
+    (reference models/ivae/toy.py:233-237)."""
+
+    def _layer(self, in_dim, ctx_dim, out_dim, is_out):
+        return ContextLinear(in_dim, ctx_dim, out_dim, gaussian=self._gaussian(is_out))
+
+
+class ContextWNScaleMLP(_ContextLayerMLP):
+    def _layer(self, in_dim, ctx_dim, out_dim, is_out):
+        return ContextWeightNormalizedLinear(in_dim, ctx_dim, out_dim)
+
+
+class ContextSPScaleMLP(_ContextLayerMLP):
+    def _layer(self, in_dim, ctx_dim, out_dim, is_out):
+        return ContextSoftPlusLinear(in_dim, ctx_dim, out_dim)
+
+
+class ContextSPWNScaleMLP(_ContextLayerMLP):
+    def _layer(self, in_dim, ctx_dim, out_dim, is_out):
+        return ContextSoftPlusWeightNormalizedLinear(in_dim, ctx_dim, out_dim)
+
+
+class ContextBilinearMLP(_ContextLayerMLP):
+    """SimplifiedBilinear at every layer (reference models/layers.py:932-986)."""
+
+    def _layer(self, in_dim, ctx_dim, out_dim, is_out):
+        return SimplifiedBilinear(in_dim, ctx_dim, out_dim,
+                                  gaussian=self._gaussian(is_out))
+
+
+class ContextWNBilinearMLP(_ContextLayerMLP):
+    def _layer(self, in_dim, ctx_dim, out_dim, is_out):
+        return WeightNormalizedSimplifiedBilinear(
+            in_dim, ctx_dim, out_dim, gaussian=self._gaussian(is_out))
+
+
+class ContextSWNBilinearMLP(_ContextLayerMLP):
+    def _layer(self, in_dim, ctx_dim, out_dim, is_out):
+        return StackedWeightNormalizedSimplifiedBilinear(
+            in_dim, ctx_dim, self.hidden_dim, out_dim,
+            gaussian=self._gaussian(is_out))

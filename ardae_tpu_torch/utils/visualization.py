@@ -11,11 +11,15 @@ that row 0 is the bottom (imshow's ``origin="lower"``), scaled to its
 maximum, coloured by the jet colour table and repeated up to the panel; a
 scatter lays each point as a 2 x 2-pixel mark of matplotlib's first colour
 at its alpha over a white field, y up; a 1-D histogram draws its density
-bars in that colour. The quiver panel waits with the examples (ROADMAP
-queue 1, item 1).
+bars in that colour; a quiver draws one black arrow per grid point, its
+length scaled as matplotlib's autoscale does. ``save_png`` writes a panel
+as a PNG with ``zlib`` and ``struct`` alone, for the examples: the card has
+neither matplotlib nor PIL.
 """
 
 import math
+import struct
+import zlib
 
 import numpy as np
 import torch
@@ -116,6 +120,74 @@ def get_1d_histogram_plot(data, val=4, num=128):
     img = np.full((PANEL, PANEL, 3), 255.0)
     img[filled] = _C0
     return img.astype(np.uint8)
+
+
+def get_data_for_quiver_plot(val=4, num=20):
+    """A num x num grid over [-val, val]^2: its points (num^2, 2) float32
+    and the meshgrid (reference :63-69)."""
+    lin = np.linspace(-val, val, num)
+    xs, ys = np.meshgrid(lin, lin)
+    data = np.stack([xs.reshape(-1), ys.reshape(-1)], axis=1).astype(np.float32)
+    return data, xs, ys
+
+
+def get_quiver_plot(grad, xs, ys, xlim=4.5, ylim=4.5):
+    """The vector field ``grad`` (N, 2) at the grid points ``xs``, ``ys``
+    over [-xlim, xlim] x [-ylim, ylim], y up: a black arrow from each point
+    on white (reference :71-120). Lengths follow matplotlib's autoscale
+    (``Quiver``'s scale = 1.8 x the mean arrow length x max(10, sqrt(N)) a
+    panel width), so the mean arrow is a panel width over 1.8 max(10,
+    sqrt(N)), about half a cell of a 41 x 41 grid; the head is two strokes
+    at +-25 degrees, a third of the arrow long."""
+    g = np.asarray(grad, np.float64).reshape(-1, 2)
+    px = np.asarray(xs, np.float64).reshape(-1)
+    py = np.asarray(ys, np.float64).reshape(-1)
+    mag = np.hypot(g[:, 0], g[:, 1])
+    keep = np.isfinite(mag) & np.isfinite(px) & np.isfinite(py)
+    g, px, py, mag = g[keep], px[keep], py[keep], mag[keep]
+    img = np.full((PANEL, PANEL, 3), 255, np.uint8)
+    amean = float(mag.mean()) if mag.size else 0.0
+    if amean <= 0.0:
+        return img
+    per_unit = PANEL / (1.8 * amean * max(10.0, math.sqrt(g.shape[0])))
+    # panel pixels (column right, row down) of the tails and the vectors
+    col = (px + xlim) / (2.0 * xlim) * PANEL
+    row = PANEL - (py + ylim) / (2.0 * ylim) * PANEL
+    dc, dr = g[:, 0] * per_unit, -g[:, 1] * per_unit
+    strokes = [(col, row, dc, dr)]
+    for turn in (math.radians(155.0), -math.radians(155.0)):
+        c, s = math.cos(turn), math.sin(turn)
+        strokes.append((col + dc, row + dr, (c * dc - s * dr) / 3.0,
+                        (s * dc + c * dr) / 3.0))
+    steps = int(math.ceil(float(np.max(np.hypot(dc, dr))))) + 2
+    frac = np.linspace(0.0, 1.0, steps)[:, None]
+    for c0, r0, vc, vr in strokes:
+        cc = np.floor(c0[None, :] + frac * vc[None, :]).astype(np.int64).ravel()
+        rr = np.floor(r0[None, :] + frac * vr[None, :]).astype(np.int64).ravel()
+        inside = (cc >= 0) & (cc < PANEL) & (rr >= 0) & (rr < PANEL)
+        img[rr[inside], cc[inside]] = 0
+    return img
+
+
+def save_png(path, img):
+    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG: the signature,
+    IHDR, one zlib-compressed IDAT of filter-0 scanlines, IEND."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"save_png takes (H, W, 3) uint8, got {img.dtype} "
+                         f"{img.shape}")
+    hgt, wid = img.shape[:2]
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    rows = np.concatenate([np.zeros((hgt, 1), np.uint8), img.reshape(hgt, -1)], 1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", wid, hgt, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(chunk(b"IEND", b""))
 
 
 def get_grid_image(images, batch_size, nchannels, nheight, nrow=8, pad=2):

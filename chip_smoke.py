@@ -134,8 +134,32 @@ Phases (each failure exits non-zero):
      with --use-kernels, without averaging and with Polyak from step 0, in
      the turns none, polyak, polyak, none, and prints each turn's steady
      ms/step (steps 5-10).
+  9. runs the notebook workloads and the score-net and toy-encoder zoo
+     that no driver builds. 9a: the three examples at their published
+     widths (ardae_tpu_torch/examples/, the JAX scripts' defaults) with
+     the iteration counts of tests/test_examples.py, each timed (ms per
+     iteration, CUDA-synchronised): dae_toy grad and res, 600 iterations,
+     finite losses and score field; ardae_toy grad, 1,500, final loss
+     below 1 and the score at sigma 1 from (4.5, 4.5), (-4.5, -4.5) and
+     (4.5, -4.5) pointing toward the swiss roll; ardae_fit, 2,000 with
+     alpha annealed over 400, the mean energy_func4 of 4,000 samples 0.5
+     below that of N(0, I) points. Then each example's main() at a cut
+     --iterations, its PNGs read back (signature, CRCs, 500 x 500 RGB); and
+     one DSM step of each of the six unconditional / fixed-sigma
+     constructors (the CDAEs through cdae_loss) from one set of weights and
+     one injected eps, card against CPU: loss rel <= 1e-5, every gradient
+     rel-norm <= 1e-4. 9b: each of the thirteen toy-encoder fusions
+     (ToyIPVAE enc_type) at scripts/run_vae_25gaussians.sh's widths (noise
+     10, h 256, 2 layers, relu, z 2) trains 4 joint steps through
+     train_chunk with that line's StepConfig and cdae (mlp-grad, h 256, 3
+     layers, softplus, lt0, bs 512, nz_cdae 256, std-scale 10000) and the
+     grad kernel: launch counters at 0 before each run, 1 + 1 grad launches
+     a step and no res one, finite losses, moved parameters; before it,
+     sample_z card against CPU from the same weights and eps (rel-norm <=
+     1e-5). 9c: the legacy DAEs MLPDAE and MLPCDAE, loss, gradients and
+     score card against CPU (as 9a).
 Then it prints the kernels' JSON line (each kernel's launches over the
-main path's runs, 5-5i but 5c, and 8a-8c, and by line under "launched_by"; and at its
+main path's runs, 5-5i but 5c, 8a-8c and 9b, and by line under "launched_by"; and at its
 first line's shape its error, times, FLOP,
 launches per step and bound, the grad kernel's 25-gaussians shape beside
 them under "at_25-gaussians"; the bound is the larger of
@@ -1377,6 +1401,239 @@ def drive_published(torch, dev, res, grad, kernels, card, by_line, ms_step):
           f"| {card}", flush=True)
 
 
+# phase 9a: tests/test_examples.py's iteration counts at the JAX scripts'
+# widths; 9b: scripts/run_vae_25gaussians.sh's widths and step flags
+EXAMPLE_STEPS = {"dae_toy": 600, "ardae_toy": 1500, "ardae_fit": 2000}
+TOY_ENC = dict(input_dim=2, noise_dim=10, h_dim=256, z_dim=2, nonlinearity="relu",
+               num_hidden_layers=2)
+TOY_ENC_STEPS = 4
+
+
+def read_png(path):
+    """(height, width) of an 8-bit RGB PNG whose chunks' CRCs hold and whose
+    pixels decompress to height x (1 + 3 width) bytes."""
+    import struct
+    import zlib
+
+    raw = open(path, "rb").read()
+    if raw[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path}: not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(raw):
+        (n,) = struct.unpack(">I", raw[pos:pos + 4])
+        kind, body = raw[pos + 4:pos + 8], raw[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", raw[pos + 8 + n:pos + 12 + n])[0] != \
+                zlib.crc32(kind + body) & 0xFFFFFFFF:
+            fail(f"{path}: bad CRC in {kind}")
+        chunks[kind] = chunks.get(kind, b"") + body
+        pos += 12 + n
+    wid, hgt, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    if (depth, color) != (8, 2) or \
+            len(zlib.decompress(chunks[b"IDAT"])) != hgt * (1 + 3 * wid):
+        fail(f"{path}: not an 8-bit RGB image of its size")
+    return hgt, wid
+
+
+def rel_norm(a, b):
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+def card_vs_cpu(torch, module, loss_fn, what):
+    """One loss and its gradients from the same weights on the card and on
+    the CPU (``loss_fn(module, device)``); fails past LOSS_RTOL / GRAD_RTOL.
+    Returns (loss rel err, worst grad rel-norm err)."""
+    import copy
+
+    out = []
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(module).to(dev)
+        loss = loss_fn(m, dev)
+        loss.backward()
+        out.append((float(loss.detach()), {k: p.grad.detach().cpu() for k, p in
+                                  m.named_parameters() if p.grad is not None}))
+    (lc, gc), (lp, gp) = out
+    lrel = abs(lc - lp) / abs(lp)
+    if gc.keys() != gp.keys():
+        fail(f"{what}: gradients on {sorted(gc)} vs {sorted(gp)}")
+    grel = max(rel_norm(gc[k], gp[k]) for k in gp)
+    if not (math.isfinite(lc) and lrel <= LOSS_RTOL and grel <= GRAD_RTOL):
+        fail(f"{what}: card vs CPU loss {lc} / {lp} (rel {lrel:.2e}), worst grad "
+             f"rel-norm {grel:.2e}")
+    return lrel, grel
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def drive_examples(torch, card):
+    """Phase 9a."""
+    from ardae_tpu_torch.examples import ardae_fit, ardae_toy, dae_toy, published
+    from ardae_tpu_torch.models.cdae import cardae
+    from ardae_tpu_torch.nn.initializers import init_module
+
+    for example, score_type, log_interval in (
+            ("dae_toy", "grad", 200), ("dae_toy", "res", 200),
+            ("ardae_toy", "grad", 500), ("ardae_fit", None, 500)):
+        kw = {"alpha_annealing": 400} if example == "ardae_fit" else {}
+        r = published.run(example, score_type, EXAMPLE_STEPS[example],
+                          log_interval=log_interval, **kw)
+        what = f"phase 9a {example}{' ' + score_type if score_type else ''}"
+        if not r["ok"]:
+            fail(f"{what}: {r}")
+        if example == "ardae_toy":
+            held = (f"final loss < 1; distance to the swiss roll before / after a "
+                    f"0.5 step along the score at sigma 1 "
+                    f"{[(round(a, 4), round(b, 4)) for a, b in r['toward_the_data']]}")
+        elif example == "ardae_fit":
+            held = (f"mean energy_func4 of 4,000 samples {r['energy']:.4f} against "
+                    f"{r['energy_normal']:.4f} of N(0, I) points")
+        else:
+            held = "losses and score field finite"
+        print(f"{what}: {r['iterations']} iterations in {r['seconds']:.2f} s, "
+              f"{r['ms_per_iteration']:.3f} ms/iteration; logged losses "
+              f"{r['losses']}; {held} | {card}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for mod, args, outs in (
+                (dae_toy, ["--out", f"{tmp}/q.png"], ["q.png"]),
+                (ardae_toy, ["--out-prefix", f"{tmp}/q"], ["q_s0.0.png", "q_s1.0.png"]),
+                (ardae_fit, ["--out", f"{tmp}/h.png"], ["h.png"])):
+            name = mod.__name__.rsplit(".", 1)[1]
+            _, sec = timed(torch, lambda: mod.main(args + ["--iterations", "20"]))
+            shapes = [read_png(os.path.join(tmp, o)) for o in outs]
+            if any(sh != (500, 500) for sh in shapes):
+                fail(f"phase 9a {name} main: PNGs {shapes}")
+            print(f"phase 9a {name} main(), 20 iterations: {len(outs)} readable "
+                  f"500 x 500 PNG(s) in {sec:.2f} s", flush=True)
+
+    g = torch.Generator().manual_seed(9)
+    x = 2.0 * torch.randn(2560, 2, generator=g)
+    std = torch.randn(2560, 1, generator=g)
+    eps = torch.randn(2560, 2, generator=g)
+    ctx = torch.randn(256, 2, generator=g)
+    for name in ("MLPResCDAE", "MLPGradCDAE", "MLPResARDAE", "MLPGradARDAE",
+                 "MLPResDAE", "MLPGradDAE"):
+        ctor = getattr(cardae, name)
+        widths = dict(h_dim=128, num_hidden_layers=3, nonlinearity="softplus")
+        if name.endswith("CDAE"):
+            net = ctor(2, 2, **widths)
+            loss_fn = lambda m, d: cardae.cdae_loss(
+                m, x.to(d).reshape(256, 10, 2), ctx.to(d),
+                std.to(d).reshape(256, 10, 1), eps=eps.to(d))
+        else:
+            net = ctor(2, **widths)
+            loss_fn = lambda m, d: cardae.dae_loss(m, x.to(d), std.to(d),
+                                                   eps=eps.to(d))
+        init_module(net, torch.Generator().manual_seed(3))
+        lrel, grel = card_vs_cpu(torch, net, loss_fn, f"phase 9a {name}")
+        print(f"phase 9a {name} (h 128, 3 layers, 2,560 rows): card vs CPU loss rel "
+              f"{lrel:.2e}, worst grad rel-norm {grel:.2e}", flush=True)
+
+
+def drive_toy_encoders(torch, dev, grad, kernels, card):
+    """Phase 9b: 4 joint steps of each toy-encoder fusion through
+    train_chunk with the 25-gaussians line's step flags and the grad
+    kernel. Returns the launches of the runs, summed."""
+    import copy
+
+    import numpy as np
+
+    from ardae_tpu_torch.data.toy import generate_toy_data
+    from ardae_tpu_torch.models.ivae.toy import ENC_TYPES, ToyIPVAE
+    from ardae_tpu_torch.models.registry import build_cdae
+    from ardae_tpu_torch.nn.initializers import init_module
+    from ardae_tpu_torch.train.optim import build_optimizer
+    from ardae_tpu_torch.train.state import create_train_state
+    from ardae_tpu_torch.train.step import StepConfig, train_chunk
+
+    with tempfile.TemporaryDirectory() as tmp:
+        train = generate_toy_data("25gaussians", sizes=dict(train=8192, val=16, test=16),
+                                  cache_dir=tmp)["train"][0]
+    data = torch.as_tensor(train, device=dev)
+    bs, steps = 512, TOY_ENC_STEPS
+    cfg = StepConfig(std_scale=10000.0, delta=0.1, num_cdae_updates=1,
+                     train_nz_cdae=256, train_nz_model=1, ctx_type="lt0",
+                     use_kernels=True)
+    rng = np.random.default_rng(0)
+    total = {n: 0 for n in read_counts(kernels)}
+    for enc_type in ENC_TYPES:
+        model = init_module(ToyIPVAE(**TOY_ENC, enc_type=enc_type),
+                            torch.Generator().manual_seed(0))
+        x = torch.as_tensor(train[:bs])
+        eps = torch.randn(bs * 4, TOY_ENC["noise_dim"],
+                          generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            z_cpu = model.sample_z(x, eps)
+            model.to(dev)
+            z_card = model.sample_z(x.to(dev), eps.to(dev)).cpu()
+        zrel = rel_norm(z_card, z_cpu)
+        if not (bool(torch.isfinite(z_card).all()) and zrel <= 1e-5):
+            fail(f"phase 9b {enc_type}: sample_z card vs CPU rel-norm {zrel:.2e}")
+        start = copy.deepcopy(model)
+        cdae = build_cdae("mlp-grad", input_dim=2, context_dim=2, h_dim=256,
+                          n_layers=3, nonlin="softplus", seed=1, device=dev)
+        state = create_train_state(
+            model, build_optimizer("adam", model.parameters(), 1e-4, beta1=0.5,
+                                   momentum=0.5),
+            cdae, build_optimizer("rmsprop", cdae.parameters(), 1e-4, beta1=0.5,
+                                  momentum=0.5))
+        c_idx = rng.integers(0, len(train), (steps, 1, bs))
+        m_idx = rng.integers(0, len(train), (steps, bs))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        reset_counts(kernels)
+        metrics, sec = timed(torch, lambda: train_chunk(
+            state, cfg, data, c_idx, m_idx, gen, lambda step: 1.0))
+        launches = read_counts(kernels)
+        expected = {n: (steps if n in grad["fn"].launches else 0) for n in launches}
+        if launches != expected:
+            fail(f"phase 9b {enc_type}: kernel launches {launches}, expected {expected}")
+        losses = {k: float(v) for k, v in metrics.items()}
+        moved = sum(not torch.equal(p, q) for p, q in
+                    zip(model.parameters(), start.parameters()))
+        if not (all(map(math.isfinite, losses.values())) and moved):
+            fail(f"phase 9b {enc_type}: metrics {losses}, {moved} tensors moved")
+        for n, c in launches.items():
+            total[n] += c
+        print(f"phase 9b {enc_type}: sample_z card vs CPU rel-norm {zrel:.2e}; "
+              f"{steps} steps in {sec:.2f} s ({1e3 * sec / steps:.1f} ms/step, the "
+              f"first included); launches {launches}; loss (cdae) "
+              f"{losses['cdae_loss']:.4f}, loss (vae) {losses['model_loss']:.4f}; "
+              f"{moved}/{len(list(model.parameters()))} model tensors moved | {card}",
+              flush=True)
+        del state, model, cdae
+    return total
+
+
+def drive_legacy(torch):
+    """Phase 9c."""
+    from ardae_tpu_torch.models.cdae import legacy
+    from ardae_tpu_torch.nn.initializers import init_module
+
+    g = torch.Generator().manual_seed(11)
+    x, ctx = torch.randn(2560, 2, generator=g), torch.randn(2560, 2, generator=g)
+    eps = torch.randn(2560, 2, generator=g)
+    for name, net, c in (("MLPDAE", legacy.MLPDAE(2), None),
+                         ("MLPCDAE", legacy.MLPCDAE(2, 2, enc_input=True), ctx)):
+        init_module(net, torch.Generator().manual_seed(4))
+        arg = lambda d: None if c is None else c.to(d)
+        lrel, grel = card_vs_cpu(torch, net, lambda m, d: legacy.legacy_dae_loss(
+            m, x.to(d), 0.3, arg(d), eps=eps.to(d)), f"phase 9c {name}")
+        with torch.no_grad():
+            s_card = legacy.legacy_dae_score(net.to("cuda"), x.cuda(), 0.3,
+                                             arg("cuda")).cpu()
+            s_cpu = legacy.legacy_dae_score(net.cpu(), x, 0.3, arg("cpu"))
+        srel = rel_norm(s_card, s_cpu)
+        if srel > LOSS_RTOL:
+            fail(f"phase 9c {name}: score card vs CPU rel-norm {srel:.2e}")
+        print(f"phase 9c {name} (2,560 rows): card vs CPU loss rel {lrel:.2e}, worst "
+              f"grad rel-norm {grel:.2e}, score rel-norm {srel:.2e}", flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1472,6 +1729,11 @@ def main():
     drive_aux_baselines(torch, dev, kernels, card)
     drive_toy_baseline(torch, dev, kernels, card)
     drive_published(torch, dev, res, grad, kernels, card, by_line, ms_step)
+    t9 = time.perf_counter()
+    drive_examples(torch, card)
+    by_line["toy-encoders"] = drive_toy_encoders(torch, dev, grad, kernels, card)
+    drive_legacy(torch)
+    print(f"phase 9 passed in {time.perf_counter() - t9:.1f} s", flush=True)
     launches = {n: sum(c[n] for c in by_line.values()) for k in kernels
                 for n in k["fn"].launches}
     launched_by = {n: {line: c[n] for line, c in by_line.items() if c[n]}
