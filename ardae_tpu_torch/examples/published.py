@@ -1,7 +1,7 @@
 """The three notebook workloads at their published lengths, each held to the
 criteria of tests/test_examples.py (JAX package), with its time.
 
-    python -m ardae_tpu_torch.examples.published [--no-cuda] [--max-iterations N]
+    python -m ardae_tpu_torch.examples.published
 
 Five runs, one after the other at the JAX scripts' defaults: dae_toy grad
 and res (5,000 iterations), ardae_toy grad and res (5,000) and ardae_fit
@@ -13,8 +13,8 @@ at least 0.5 below that of 4,000 N(0, I) points. Each run prints one JSON
 line (seconds and ms per iteration, host clock around a synchronised run;
 every logged loss; the criteria's numbers), then the card's name and power
 limit, then {"ok": ...}; the exit code is 1 if a criterion failed.
-``--max-iterations`` cuts every run, for a rehearsal. chip_smoke.py's phase
-9a calls ``run`` at the test's shorter lengths.
+It runs on the card only. chip_smoke.py's phase 9a calls ``run`` at the
+tests' shorter lengths.
 """
 
 import argparse
@@ -105,19 +105,13 @@ def card_line():
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--no-cuda", action="store_true", help="run on the CPU")
-    ap.add_argument("--max-iterations", type=int, default=None)
-    args = ap.parse_args(argv)
-    device = "cpu" if args.no_cuda else "cuda"
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(argv)
     ok = True
     for example, score_type, iters in PUBLISHED:
-        if args.max_iterations is not None:
-            iters = min(iters, args.max_iterations)
-        res = run(example, score_type, iters, device)
+        res = run(example, score_type, iters)
         ok = ok and res["ok"]
         print(json.dumps(res), flush=True)
-    print(card_line() if device == "cuda" else "cpu")
+    print(card_line())
     print(json.dumps({"ok": ok}))
     return 0 if ok else 1
 

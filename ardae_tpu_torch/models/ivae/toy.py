@@ -12,10 +12,10 @@ hidden layers and a nonlinear output; weight-normalized for
     builds): a context MLP whose input is the features and whose context
     the noise (``stacked-weightnorm-bilinear`` with one hidden layer
     fewer, each layer two deep).
-The decoder is an MLP into a Normal head: a Gaussian likelihood. Under
-``init_mode="gaussian"`` (the registry's) the encoder's output layer and
-the decoder's mean weight are drawn from N(0, 1) where the reference's
-reset_parameters does so.
+The decoder is an MLP into a Normal head: a Gaussian likelihood. The
+encoder's output layer and the decoder's mean weight are drawn from
+N(0, 1) where the reference's reset_parameters does so: the twin's
+``init_mode="gaussian"``, the only one any registry name or script uses.
 """
 
 import torch
@@ -73,20 +73,18 @@ _CONTEXT_MLP = {
 
 class ToyEncoder(nn.Module):
     def __init__(self, input_dim=2, noise_dim=2, h_dim=64, z_dim=2,
-                 nonlinearity="tanh", num_hidden_layers=1, enc_type="concat",
-                 init_mode="gaussian"):
+                 nonlinearity="tanh", num_hidden_layers=1, enc_type="concat"):
         super().__init__()
         if enc_type not in ENC_TYPES:
             raise ValueError(f"unknown toy encoder {enc_type!r}: one of {ENC_TYPES}")
         self.z_dim, self.enc_type = z_dim, enc_type
-        gauss = init_mode == "gaussian"
         trunk = WNMLP if enc_type == "weightnorm" else MLP
         self.inp_encode = trunk(input_dim, h_dim, h_dim, nonlinearity=nonlinearity,
                                 num_hidden_layers=num_hidden_layers - 1,
                                 use_nonlinearity_output=True)
         fc = dict(nonlinearity=nonlinearity, num_hidden_layers=num_hidden_layers)
         if enc_type == "simple":
-            self.fc = MLP(h_dim + noise_dim, h_dim, z_dim, gaussian_out_init=gauss,
+            self.fc = MLP(h_dim + noise_dim, h_dim, z_dim, gaussian_out_init=True,
                           **fc)
         elif enc_type == "weightnorm":
             # the reference's WeightNormalizedEncoder.reset_parameters names
@@ -94,8 +92,6 @@ class ToyEncoder(nn.Module):
             # init stands, as in the JAX twin
             self.fc = WNMLP(h_dim + noise_dim, h_dim, z_dim, **fc)
         else:
-            if enc_type != "res":   # ContextResMLP has no Gaussian init
-                fc["gaussian_out_init"] = gauss
             if enc_type == "stacked-weightnorm-bilinear":
                 fc["num_hidden_layers"] = num_hidden_layers - 1
             in_dim, ctx_dim = ((noise_dim, h_dim) if enc_type in _NOISE_IN
@@ -123,13 +119,12 @@ class ToyDecoder(nn.Module):
     """Gaussian decoder (reference :694-737)."""
 
     def __init__(self, input_dim=2, z_dim=2, h_dim=64, nonlinearity="tanh",
-                 num_hidden_layers=1, init_mode="gaussian"):
+                 num_hidden_layers=1):
         super().__init__()
         self.main = MLP(z_dim, h_dim, h_dim, nonlinearity=nonlinearity,
                         num_hidden_layers=num_hidden_layers - 1,
                         use_nonlinearity_output=True)
-        self.reparam = NormalHead(h_dim, input_dim,
-                                  normal_mean=init_mode == "gaussian")
+        self.reparam = NormalHead(h_dim, input_dim, normal_mean=True)
 
     def forward(self, z):
         return self.reparam(self.main(z.reshape(z.shape[0], -1)))  # (mu, logvar)
@@ -141,14 +136,13 @@ class ToyIPVAE(nn.Module):
     center_input = False
 
     def __init__(self, input_dim=2, noise_dim=2, h_dim=64, z_dim=2,
-                 nonlinearity="tanh", num_hidden_layers=1, init_mode="gaussian",
-                 enc_type="concat"):
+                 nonlinearity="tanh", num_hidden_layers=1, enc_type="concat"):
         super().__init__()
         self.z_dim, self.noise_dim = z_dim, noise_dim
         self.encode = ToyEncoder(input_dim, noise_dim, h_dim, z_dim, nonlinearity,
-                                 num_hidden_layers, enc_type, init_mode)
+                                 num_hidden_layers, enc_type)
         self.decode = ToyDecoder(input_dim, z_dim, h_dim, nonlinearity,
-                                 num_hidden_layers, init_mode)
+                                 num_hidden_layers)
 
     def sample_z(self, x, eps):
         return self.encode(x, eps)

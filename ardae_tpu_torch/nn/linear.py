@@ -125,12 +125,11 @@ class ContextResLinear(nn.Module):
     """ResLinear with an additive context branch (reference
     models/layers.py:87-111): dot_h1(relu(dot_0h(x))) +
     dot_c1(relu(dot_0c(ctx))) + (x if same_dim else dot_01(x)), every
-    product a WeightNormalizedLinear."""
+    product a WeightNormalizedLinear, none row-normalized."""
 
-    def __init__(self, in_features, ctx_features, out_features, same_dim=False,
-                 norm=False):
+    def __init__(self, in_features, ctx_features, out_features, same_dim=False):
         super().__init__()
-        wn = lambda i: WeightNormalizedLinear(i, out_features, norm=norm)
+        wn = lambda i: WeightNormalizedLinear(i, out_features, norm=False)
         self.same_dim = same_dim
         self.dot_0h = wn(in_features)
         self.dot_h1 = wn(out_features)
@@ -170,14 +169,14 @@ class ContextLinear(nn.Module):
 
 class ContextWeightNormalizedLinear(nn.Module):
     """FiLM with a row-normalized context scale (reference
-    models/layers.py:176-215): (1 + ctx_scale * ctx @ rownorm(cscale)) *
-    (x @ direction) + cbias(ctx), cscale N(0, 0.005^2)."""
+    models/layers.py:176-215, at its defaults: the input path not
+    normalized, the context path normalized and scaled by 0.1):
+    (1 + 0.1 * ctx @ rownorm(cscale)) * (x @ direction) + cbias(ctx),
+    cscale N(0, 0.005^2)."""
 
-    def __init__(self, in_features, ctx_features, out_features, in_norm=False,
-                 ctx_norm=True, ctx_scale=0.1):
+    def __init__(self, in_features, ctx_features, out_features):
         super().__init__()
         self.in_features = in_features
-        self.in_norm, self.ctx_norm, self.ctx_scale = in_norm, ctx_norm, ctx_scale
         self.direction = nn.Parameter(torch.empty(out_features, in_features))
         self.cscale = nn.Parameter(torch.empty(out_features, ctx_features))
         self.cbias = Linear(ctx_features, out_features)
@@ -188,12 +187,8 @@ class ContextWeightNormalizedLinear(nn.Module):
             normal_(self.cscale, generator).mul_(0.005)
 
     def forward(self, x, ctx):
-        if self.ctx_norm:
-            scale = 1.0 + self.ctx_scale * F.linear(ctx, _row_normalize(self.cscale))
-        else:
-            scale = 1.0 + F.linear(ctx, self.cscale)
-        w = _row_normalize(self.direction) if self.in_norm else self.direction
-        return scale * F.linear(x, w) + self.cbias(ctx)
+        scale = 1.0 + 0.1 * F.linear(ctx, _row_normalize(self.cscale))
+        return scale * F.linear(x, self.direction) + self.cbias(ctx)
 
 
 class ContextSoftPlusLinear(nn.Module):
@@ -217,13 +212,12 @@ class ContextSoftPlusLinear(nn.Module):
 class ContextSoftPlusWeightNormalizedLinear(nn.Module):
     """softplus(ctx @ rownorm(cscale) + cscalebias) * (x @ direction) +
     cbias(ctx), cscale N(0, 1), cscalebias U(+-1/sqrt(ctx_features))
-    (reference models/layers.py:286-328)."""
+    (reference models/layers.py:286-328, at its defaults: only the context
+    path row-normalized)."""
 
-    def __init__(self, in_features, ctx_features, out_features, in_norm=False,
-                 ctx_norm=True):
+    def __init__(self, in_features, ctx_features, out_features):
         super().__init__()
         self.in_features, self.ctx_features = in_features, ctx_features
-        self.in_norm, self.ctx_norm = in_norm, ctx_norm
         self.direction = nn.Parameter(torch.empty(out_features, in_features))
         self.cscale = nn.Parameter(torch.empty(out_features, ctx_features))
         self.cscalebias = nn.Parameter(torch.empty(out_features))
@@ -236,22 +230,19 @@ class ContextSoftPlusWeightNormalizedLinear(nn.Module):
                  generator)
 
     def forward(self, x, ctx):
-        w_ctx = _row_normalize(self.cscale) if self.ctx_norm else self.cscale
-        scale = F.softplus(F.linear(ctx, w_ctx) + self.cscalebias)
-        w = _row_normalize(self.direction) if self.in_norm else self.direction
-        return scale * F.linear(x, w) + self.cbias(ctx)
+        scale = F.softplus(F.linear(ctx, _row_normalize(self.cscale))
+                           + self.cscalebias)
+        return scale * F.linear(x, self.direction) + self.cbias(ctx)
 
 
 class SimplifiedBilinear(nn.Module):
     """path1(x1) + path2(x2), path2 bias-free (reference
     models/layers.py:398-413); ``gaussian``: both weights N(0, 1)."""
 
-    def __init__(self, in1_features, in2_features, out_features, use_bias=True,
-                 gaussian=False):
+    def __init__(self, in1_features, in2_features, out_features, gaussian=False):
         super().__init__()
         std = 1.0 if gaussian else None
-        self.path1 = Linear(in1_features, out_features, use_bias=use_bias,
-                            normal_std=std)
+        self.path1 = Linear(in1_features, out_features, normal_std=std)
         self.path2 = Linear(in2_features, out_features, use_bias=False,
                             normal_std=std)
 
@@ -260,45 +251,40 @@ class SimplifiedBilinear(nn.Module):
 
 
 class WeightNormalizedSimplifiedBilinear(nn.Module):
-    """x1 @ path1 + x2 @ path2 + bias, each path optionally row-normalized
-    (reference models/layers.py:415-455; in1_norm=False, in2_norm=True);
-    ``gaussian``: path1 and path2 N(0, 1)."""
+    """x1 @ path1 + x2 @ rownorm(path2) + bias (reference
+    models/layers.py:415-455, at its defaults in1_norm=False,
+    in2_norm=True); ``gaussian``: path1 and path2 N(0, 1)."""
 
-    def __init__(self, in1_features, in2_features, out_features, use_bias=True,
-                 in1_norm=False, in2_norm=True, gaussian=False):
+    def __init__(self, in1_features, in2_features, out_features, gaussian=False):
         super().__init__()
         self.in1_features, self.in2_features = in1_features, in2_features
-        self.in1_norm, self.in2_norm, self.gaussian = in1_norm, in2_norm, gaussian
+        self.gaussian = gaussian
         self.path1 = nn.Parameter(torch.empty(out_features, in1_features))
         self.path2 = nn.Parameter(torch.empty(out_features, in2_features))
-        self.bias = (nn.Parameter(torch.empty(out_features))
-                     if use_bias else None)
+        self.bias = nn.Parameter(torch.empty(out_features))
 
     def init_params(self, generator):
         _uniform_or_normal(self.path1, self.in1_features, self.gaussian, generator)
         _uniform_or_normal(self.path2, self.in2_features, self.gaussian, generator)
-        if self.bias is not None:
-            uniform_(self.bias, 1.0 / math.sqrt(self.in1_features), generator)
+        uniform_(self.bias, 1.0 / math.sqrt(self.in1_features), generator)
 
     def forward(self, x1, x2):
-        w1 = _row_normalize(self.path1) if self.in1_norm else self.path1
-        w2 = _row_normalize(self.path2) if self.in2_norm else self.path2
-        y = F.linear(x1, w1) + F.linear(x2, w2)
-        return y if self.bias is None else y + self.bias
+        return (F.linear(x1, self.path1)
+                + F.linear(x2, _row_normalize(self.path2)) + self.bias)
 
 
 class StackedWeightNormalizedSimplifiedBilinear(nn.Module):
     """fc(relu(main(x1, x2))), main a WeightNormalizedSimplifiedBilinear
-    with its default norms (reference models/layers.py:457-473, whose
-    constructor passes a ``norm=`` keyword the layer does not take and would
-    raise; the JAX twin and this port take the evident intent);
-    ``gaussian``: fc's weight N(0, 1)."""
+    (reference models/layers.py:457-473, whose constructor passes a
+    ``norm=`` keyword the layer does not take and would raise; the JAX twin
+    and this port take the evident intent); ``gaussian``: fc's weight
+    N(0, 1)."""
 
     def __init__(self, in1_features, in2_features, hid_features, out_features,
-                 use_bias=True, gaussian=False):
+                 gaussian=False):
         super().__init__()
         self.main = WeightNormalizedSimplifiedBilinear(
-            in1_features, in2_features, hid_features, use_bias=use_bias)
+            in1_features, in2_features, hid_features)
         self.fc = Linear(hid_features, out_features,
                          normal_std=1.0 if gaussian else None)
 

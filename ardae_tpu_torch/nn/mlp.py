@@ -7,9 +7,10 @@ activation after fc. Unlike flax, torch needs the input width up front.
 xavier-uniform weights and zero biases in every layer.
 ``gaussian_out_init=True`` draws the output layer's weights from N(0, 1)
 and leaves its biases at the default (the reference's reset_parameters,
-e.g. models/ivae/toy.py:146-147); ``ContextConcatMLP`` does by default,
-with no output activation: the form the ``concat`` toy encoder builds. The context MLPs feed the context to every layer; each is one of
-the toy encoders' fusions (models/ivae/toy.py).
+e.g. models/ivae/toy.py:146-147). The context MLPs feed the context to
+every layer; each is one of the toy encoders' fusions
+(models/ivae/toy.py), built as that encoder builds it: no output
+activation, and the output layer N(0, 1) where the reference draws it so.
 """
 
 import torch
@@ -55,11 +56,10 @@ class MLP(nn.Module):
 
 class WNMLP(nn.Module):
     """MLP of WeightNormalizedLinear layers, row-normalized but for the
-    output layer (unless ``use_norm_output``)."""
+    output layer."""
 
     def __init__(self, input_dim, hidden_dim, output_dim, nonlinearity="relu",
-                 num_hidden_layers=1, use_nonlinearity_output=False,
-                 use_norm_output=False):
+                 num_hidden_layers=1, use_nonlinearity_output=False):
         super().__init__()
         self.afun = get_nonlinear_func(nonlinearity)
         self.use_nonlinearity_output = use_nonlinearity_output
@@ -67,8 +67,7 @@ class WNMLP(nn.Module):
         self.layers = nn.ModuleList(
             WeightNormalizedLinear(dims[i], dims[i + 1])
             for i in range(num_hidden_layers))
-        self.fc = WeightNormalizedLinear(dims[-1], output_dim,
-                                         norm=use_norm_output)
+        self.fc = WeightNormalizedLinear(dims[-1], output_dim, norm=False)
 
     def forward(self, x):
         h = x.reshape(x.shape[0], -1)
@@ -106,18 +105,18 @@ class ResMLP(nn.Module):
 
 class ContextConcatMLP(nn.Module):
     """The context concatenated onto every layer's input, the output layer's
-    included (reference models/layers.py:681-724)."""
+    included (reference models/layers.py:681-724); the output weight
+    N(0, 1)."""
 
     def __init__(self, input_dim, context_dim, hidden_dim, output_dim,
-                 nonlinearity="relu", num_hidden_layers=1, gaussian_out_init=True):
+                 nonlinearity="relu", num_hidden_layers=1):
         super().__init__()
         self.afun = get_nonlinear_func(nonlinearity)
         dims = [input_dim] + [hidden_dim] * num_hidden_layers
         self.layers = nn.ModuleList(
             Linear(dims[i] + context_dim, dims[i + 1])
             for i in range(num_hidden_layers))
-        self.fc = Linear(dims[-1] + context_dim, output_dim,
-                         normal_std=1.0 if gaussian_out_init else None)
+        self.fc = Linear(dims[-1] + context_dim, output_dim, normal_std=1.0)
 
     def forward(self, x, ctx):
         h = x.reshape(x.shape[0], -1)
@@ -131,43 +130,36 @@ class ContextResMLP(nn.Module):
     """Stack of ContextResLinear blocks, the context fed to each."""
 
     def __init__(self, input_dim, context_dim, hidden_dim, output_dim,
-                 nonlinearity="relu", num_hidden_layers=1,
-                 use_nonlinearity_output=False, use_norm=False,
-                 use_norm_output=False):
+                 nonlinearity="relu", num_hidden_layers=1):
         super().__init__()
         self.afun = get_nonlinear_func(nonlinearity)
-        self.use_nonlinearity_output = use_nonlinearity_output
         blocks, prev = [], input_dim
         for _ in range(num_hidden_layers):
             blocks.append(ContextResLinear(prev, context_dim, hidden_dim,
-                                           same_dim=prev == hidden_dim,
-                                           norm=use_norm))
+                                           same_dim=prev == hidden_dim))
             prev = hidden_dim
         self.layers = nn.ModuleList(blocks)
         self.fc = ContextResLinear(prev, context_dim, output_dim,
-                                   same_dim=prev == output_dim,
-                                   norm=use_norm_output)
+                                   same_dim=prev == output_dim)
 
     def forward(self, x, ctx):
         h = x.reshape(x.shape[0], -1)
         ctx = ctx.reshape(ctx.shape[0], -1)
         for block in self.layers:
             h = self.afun(block(h, ctx))
-        out = self.fc(h, ctx)
-        return self.afun(out) if self.use_nonlinearity_output else out
+        return self.fc(h, ctx)
 
 
 class _ContextLayerMLP(nn.Module):
     """``num_hidden_layers`` context layers of width ``hidden_dim`` and an
-    output one ``fc``, each taking (h, ctx); a subclass names the layer."""
+    output one ``fc``, each taking (h, ctx); a subclass names the layer, and
+    whether its output layer is drawn from N(0, 1) (``is_out``)."""
 
     def __init__(self, input_dim, context_dim, hidden_dim, output_dim,
-                 nonlinearity="relu", num_hidden_layers=3,
-                 use_nonlinearity_output=False, gaussian_out_init=False):
+                 nonlinearity="relu", num_hidden_layers=3):
         super().__init__()
         self.afun = get_nonlinear_func(nonlinearity)
-        self.use_nonlinearity_output = use_nonlinearity_output
-        self.hidden_dim, self.gaussian_out_init = hidden_dim, gaussian_out_init
+        self.hidden_dim = hidden_dim
         dims = [input_dim] + [hidden_dim] * num_hidden_layers
         self.layers = nn.ModuleList(
             self._layer(dims[i], context_dim, dims[i + 1], False)
@@ -177,16 +169,12 @@ class _ContextLayerMLP(nn.Module):
     def _layer(self, in_dim, ctx_dim, out_dim, is_out):
         raise NotImplementedError
 
-    def _gaussian(self, is_out):
-        return is_out and self.gaussian_out_init
-
     def forward(self, x, ctx):
         h = x.reshape(x.shape[0], -1)
         ctx = ctx.reshape(ctx.shape[0], -1)
         for layer in self.layers:
             h = self.afun(layer(h, ctx))
-        out = self.fc(h, ctx)
-        return self.afun(out) if self.use_nonlinearity_output else out
+        return self.fc(h, ctx)
 
 
 class ContextScaleMLP(_ContextLayerMLP):
@@ -195,7 +183,7 @@ class ContextScaleMLP(_ContextLayerMLP):
     (reference models/ivae/toy.py:233-237)."""
 
     def _layer(self, in_dim, ctx_dim, out_dim, is_out):
-        return ContextLinear(in_dim, ctx_dim, out_dim, gaussian=self._gaussian(is_out))
+        return ContextLinear(in_dim, ctx_dim, out_dim, gaussian=is_out)
 
 
 class ContextWNScaleMLP(_ContextLayerMLP):
@@ -218,17 +206,17 @@ class ContextBilinearMLP(_ContextLayerMLP):
 
     def _layer(self, in_dim, ctx_dim, out_dim, is_out):
         return SimplifiedBilinear(in_dim, ctx_dim, out_dim,
-                                  gaussian=self._gaussian(is_out))
+                                  gaussian=is_out)
 
 
 class ContextWNBilinearMLP(_ContextLayerMLP):
     def _layer(self, in_dim, ctx_dim, out_dim, is_out):
         return WeightNormalizedSimplifiedBilinear(
-            in_dim, ctx_dim, out_dim, gaussian=self._gaussian(is_out))
+            in_dim, ctx_dim, out_dim, gaussian=is_out)
 
 
 class ContextSWNBilinearMLP(_ContextLayerMLP):
     def _layer(self, in_dim, ctx_dim, out_dim, is_out):
         return StackedWeightNormalizedSimplifiedBilinear(
             in_dim, ctx_dim, self.hidden_dim, out_dim,
-            gaussian=self._gaussian(is_out))
+            gaussian=is_out)

@@ -102,9 +102,10 @@ class TorchRMSprop(torch.optim.Optimizer):
                     continue
                 st = self.state[p]
                 if not st:
-                    st["count"] = 0
                     st["sq"] = torch.zeros_like(p)
                     st["buf"] = torch.zeros_like(p)
+                # a state saved before schedules were read holds no count
+                st.setdefault("count", 0)
                 lr_now = _lr_at(group["lr"], st["count"])
                 st["count"] += 1
                 g = p.grad

@@ -2,7 +2,8 @@
 tests/test_checkpoint.py: roundtrip, a missing checkpoint, recovery from a
 crash inside a save, a newer finished ``.tmp-save`` over the live file, a
 live file with malformed meta over a readable ``.tmp-save`` (where the JAX
-twin's rule let the temporary win, io/checkpoint.py:121), load_end_iter,
+twin's rule let the temporary win, io/checkpoint.py:121), an RMSprop state
+saved without an update count, load_end_iter,
 and resume: 2 + 2 train_chunk steps with a save and a load into freshly
 built modules, optimizers and generator between them equal 4 uninterrupted
 steps bit for bit, for the flagship, implicit-conv and 25-gaussians
@@ -84,6 +85,28 @@ def test_checkpoint_roundtrip(tmp_path):
     _, meta3 = load_checkpoint(other, str(tmp_path), "checkpoint")
     assert meta3["i_ep"] == 18 and meta3["best_val_loss"] == -float("inf")
     assert sorted(os.listdir(tmp_path)) == ["checkpoint"]
+
+
+def test_rmsprop_state_without_count_resumes(tmp_path):
+    """A checkpoint whose RMSprop state holds only sq and buf (the format
+    written before the optimizers kept an update count) loads and steps as
+    the state it was saved from does."""
+    live, old = _small_state(0), _small_state(0)
+    for st in old.opt_cdae.state.values():
+        del st["count"]
+    save_checkpoint(old, META, str(tmp_path), "checkpoint")
+    resumed, _ = load_checkpoint(_small_state(9), str(tmp_path), "checkpoint")
+    g = torch.Generator().manual_seed(3)
+    for a, b in zip(live.cdae.parameters(), resumed.cdae.parameters()):
+        a.grad = torch.randn(a.shape, generator=g)
+        b.grad = a.grad.clone()
+    live.opt_cdae.step()
+    resumed.opt_cdae.step()
+    for a, b in zip(live.cdae.parameters(), resumed.cdae.parameters()):
+        assert torch.equal(a, b)
+        sa, sb = live.opt_cdae.state[a], resumed.opt_cdae.state[b]
+        assert torch.equal(sa["sq"], sb["sq"]) and torch.equal(sa["buf"], sb["buf"])
+        assert sb["count"] == 1
 
 
 def test_missing_checkpoint_returns_none(tmp_path):
