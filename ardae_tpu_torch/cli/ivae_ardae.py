@@ -12,7 +12,12 @@ eval adds a covariance jitter of 1e-5), each with an mlp-res or mlp-grad
 cdae on the MNIST family and sbMNIST, and mlp-concat and auxmlp on the toy
 datasets (swissroll, 25gaussians; a Gaussian likelihood); ``--use-kernels``
 sends phase A to the hand-written fused DSM kernel of the cdae's style.
-The whole pipeline runs: train, the
+``--cdae-compute-dtype bfloat16`` / ``--model-compute-dtype bfloat16``
+run phase A / phase B in the JAX driver's mixed precision (bf16 products
+on bf16 copies of the fp32 master parameters; train/step.py); the
+kernels are fp32 only, so ``--use-kernels`` with a bf16 phase A raises,
+while a bf16 phase B keeps them. Evaluation, averaging and checkpoints
+stay fp32. The whole pipeline runs: train, the
 val IWS eval every ``--eval-iws-interval`` steps with ``best-checkpoint``
 on improvement, ``checkpoint`` every ``--ckpt-interval`` steps, resume
 from it, ``--train-mode final`` (train+val up to the best checkpoint's
@@ -25,7 +30,7 @@ which the evals, the panels and the dump read. The eval and visualization
 draws come from generators of their own, seeded from (``--seed``,
 iteration), never from the training generator, so neither the eval or
 visualization cadence nor a resume shifts the training noise. Flags the
-port does not cover (bf16, ``--dp-devices`` / ``--sp-devices``,
+port does not cover (``--dp-devices`` / ``--sp-devices``,
 ``--profile-dir``, jacobian clamping) raise NotImplementedError naming
 their ROADMAP item whenever the run would use them; none is ignored in
 silence.
@@ -193,8 +198,6 @@ def _unsupported_flags(opt):
     if opt.lmbd_init != 0.0 or opt.lmbd_fin != 0.0:
         out.append("jacobian clamping (--lmbd-*) is dormant in the reference "
                    "too: every model's jac_clamping_loss raises")
-    if "bfloat16" in (opt.cdae_compute_dtype, opt.model_compute_dtype):
-        out.append("bf16 compute: ROADMAP queue 1 (after the fp32 slices)")
     if opt.dp_devices > 1 or opt.sp_devices > 1:
         out.append(f"--dp-devices/--sp-devices: {q}slice 7 item 15")
     if opt.profile_dir is not None:
@@ -282,7 +285,10 @@ def run(argv=None):
         num_cdae_updates=opt.num_cdae_updates,
         train_nz_cdae=opt.train_nz_cdae, train_nstd_cdae=opt.train_nstd_cdae,
         train_nz_model=opt.train_nz_model, ctx_type=opt.cdae_ctx_type,
-        use_kernels=opt.use_kernels, weight_avg=opt.m_weight_avg,
+        use_kernels=opt.use_kernels,
+        cdae_compute_dtype=opt.cdae_compute_dtype,
+        model_compute_dtype=opt.model_compute_dtype,
+        weight_avg=opt.m_weight_avg,
         weight_avg_start=opt.m_weight_avg_start,
         weight_avg_decay=opt.m_weight_avg_decay)
     if opt.train_nz_cdae < 2:

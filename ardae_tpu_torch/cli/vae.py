@@ -21,9 +21,11 @@ the toy final dump instead (``cli/common.py`` ``toy_final_dump``). Every
 ``--weight-avg polyak|swa`` keeps an averaged model, which the evals, the
 panels and the dump read. The eval and visualization draws come from
 generators of their own seeded from (``--seed``, iteration), never from
-the training generator. Flags the port does not cover (bf16,
-``--dp-devices``) raise NotImplementedError naming their ROADMAP item
-whenever the run would use them; none is ignored in silence.
+the training generator. ``--model-compute-dtype bfloat16`` trains in the
+JAX driver's mixed precision (models/vae/api.py ``vae_loss``); evaluation,
+averaging and checkpoints stay fp32. ``--dp-devices``, which the port does
+not cover, raises NotImplementedError naming its ROADMAP item whenever the
+run would use it; no flag is ignored in silence.
 
 Device: ``--no-cuda`` selects the CPU, as in the reference; otherwise the
 run needs a CUDA device and raises without one.
@@ -133,8 +135,6 @@ def _unsupported_flags(opt):
     """The parts of this run the port does not have yet, each with the
     ROADMAP item that ports it."""
     out = []
-    if opt.model_compute_dtype == "bfloat16":
-        out.append("bf16 compute: ROADMAP queue 1 (after the fp32 slices)")
     if opt.dp_devices > 1:
         out.append(f"--dp-devices: {_Q}slice 7 item 15")
     return out
@@ -194,6 +194,7 @@ def run(argv=None):
     state = create_train_state(model, optimizer, weight_avg=opt.weight_avg)
     cfg = VAEStepConfig(loss_scale=1.0 / float(opt.nchannels * opt.nheight
                                                * opt.nheight),
+                        compute_dtype=opt.model_compute_dtype,
                         weight_avg=opt.weight_avg,
                         weight_avg_start=opt.weight_avg_start,
                         weight_avg_decay=opt.weight_avg_decay)

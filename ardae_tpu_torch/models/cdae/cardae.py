@@ -21,6 +21,7 @@ reads sigma only in the loss.
 import torch
 import torch.nn as nn
 
+from ardae_tpu_torch.core.precision import cast_input, cast_module
 from ardae_tpu_torch.nn.activations import get_nonlinear_func
 from ardae_tpu_torch.nn.linear import Linear
 from ardae_tpu_torch.nn.mlp import MLP
@@ -142,19 +143,29 @@ def dsm_noise(shape, generator=None, eps=None, device=None):
                        device=device if device is not None else generator.device)
 
 
-def cdae_loss(module, latent, context, std, generator=None, eps=None):
+def cdae_loss(module, latent, context, std, generator=None, eps=None,
+              compute_dtype=None):
     """Denoising score-matching loss mse(sigma * score(x + sigma*eps), -eps),
     mean over every element (reference resdae/mlp.py:344-381,
     graddae/mlp.py:400-444). Gaussian noise only: no line of either
-    package sets the Laplace or uniform noise (ROADMAP, "Not ported")."""
+    package sets the Laplace or uniform noise (ROADMAP, "Not ported").
+
+    ``compute_dtype='bfloat16'`` is the JAX twin's recipe: the noise, the
+    perturbation x + sigma*eps and the loss product sigma*score + eps stay
+    fp32; x_bar, the context and sigma are cast to bf16 and the score net
+    (the context contribution included; a grad-style net's input gradient
+    too) runs on its parameters cast to bf16, the gradient reaching the
+    fp32 parameters through the cast."""
     bsz, ssz, zdim = latent.shape
     x = latent.reshape(-1, zdim).to(torch.float32)
     stdv = _stdv(std, bsz, ssz, x)
     eps = dsm_noise(x.shape, generator, eps, device=x.device)
     x_bar = x + stdv * eps
-    score = _score(module, x_bar, module.ctx_l0(context), stdv,
-                   create_graph=True)
-    return torch.mean((stdv * score + eps) ** 2)
+    net = cast_module(module, compute_dtype)
+    x_bar_c, ctx_c, stdv_c = (cast_input(v, compute_dtype)
+                              for v in (x_bar, context, stdv))
+    score = _score(net, x_bar_c, net.ctx_l0(ctx_c), stdv_c, create_graph=True)
+    return torch.mean((stdv * score.float() + eps) ** 2)
 
 
 def _row_std(std, n, like):

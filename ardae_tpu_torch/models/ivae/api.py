@@ -11,10 +11,19 @@ back (bsz, nz, z_dim). A flat model's encoder noise is one tensor
 (bsz*nz, noise_dim), scaled here by ``noise_std``; a hierarchical one's
 (``family == "aux"``, models/ivae/aux.py) is the pair (eps0 (bsz*nz,
 noise_dim), eps (bsz*nz, z_dim)), which the model scales itself.
+
+Mixed precision follows the JAX twin: a sampling pass casts its noise to
+x's dtype, so a bf16 pass stays bf16, while the std-0 encodings
+(``encode_det``, ``encode_hidden_feats``) take fp32 zeros, as JAX's
+``jnp.zeros`` are, and promote the rest of the encoding to fp32 where
+those zeros enter it; ``ivae_loss(compute_dtype='bfloat16')`` runs the
+encoder and decoder on bf16 parameters and keeps z, the decoder's
+outputs and the loss in fp32.
 """
 
 import torch
 
+from ardae_tpu_torch.core.precision import cast_input, cast_module, fp32
 from ardae_tpu_torch.core.energy import normal_energy_func
 from ardae_tpu_torch.core.losses import (
     iwae_bound,
@@ -54,7 +63,8 @@ def sample_latents(module, x, nz, noise_std=None, generator=None, eps=None):
 
 
 def _zero_eps(module, x):
-    zeros = lambda w: torch.zeros((x.shape[0], w), dtype=x.dtype, device=x.device)
+    """The std-0 noise: fp32 zeros whatever x's dtype (JAX's jnp.zeros)."""
+    zeros = lambda w: torch.zeros((x.shape[0], w), device=x.device)
     if module.family == "aux":
         return (zeros(module.noise_dim), zeros(module.z_dim))
     return zeros(module.noise_dim)
@@ -90,14 +100,18 @@ def recon_loss_fn(module, dist_params, target_flat):
 
 
 def ivae_loss(module, x, nz, beta=1.0, noise_std=None, generator=None,
-              eps=None):
+              eps=None, compute_dtype=None):
     """loss = mean(recon + beta * prior_energy); the q-entropy term is absent
     on purpose (its gradient is injected by the CDAE, train/step.py).
-    Returns (loss, dict of terms)."""
+    Returns (loss, dict of terms). ``compute_dtype='bfloat16'``: the
+    encoder and decoder on bf16 parameters and input (JAX api.py:86-125);
+    z comes back fp32 and goes into the decoder in bf16, whose outputs and
+    the loss reductions are fp32."""
     bsz = x.shape[0]
-    z = sample_latents(module, x, nz, noise_std, generator, eps)
+    net, x_c = cast_module(module, compute_dtype), cast_input(x, compute_dtype)
+    z = sample_latents(net, x_c, nz, noise_std, generator, eps).float()
     z_flat = z.reshape(bsz * nz, -1)
-    dist_params = module.decode_params(z_flat)
+    dist_params = fp32(net.decode_params(z_flat.to(x_c.dtype)))
     x_flat = x.reshape(bsz, -1)
     target = x_flat[:, None, :].expand(bsz, nz, x_flat.shape[-1])
     recon = recon_loss_fn(module, dist_params, target.reshape(bsz * nz, -1))

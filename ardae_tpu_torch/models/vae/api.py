@@ -14,10 +14,16 @@ drivers pick them, and its ``eps`` is the pair (eps0, eps); and the
 ``flow_posterior`` family of toy-maf (models/vae/maf.py): its ``eps`` is the
 base Gaussian's draw z0, pushed through the flow's inverse, and its KLD the
 one-sample Monte-Carlo log q(z|x) - log p(z).
+
+``vae_loss(compute_dtype='bfloat16')`` is the JAX twin's mixed precision
+(api.py:34-75): the encoder and decoder on bf16 copies of the fp32
+parameters, the Gaussian sampling, a flow (on the fp32 parameters) and
+the loss reductions in fp32; evaluation stays fp32.
 """
 
 import torch
 
+from ardae_tpu_torch.core.precision import cast_input, cast_module, fp32
 from ardae_tpu_torch.core.losses import iwae_bound, loss_kld_gaussian, reduce_batch
 from ardae_tpu_torch.core.rng import sample_gaussian
 from ardae_tpu_torch.core.stats import logprob_gaussian
@@ -39,22 +45,28 @@ def _flow_sample(module, mu, logvar, ctx, generator, eps):
     return z.reshape(mu.shape), logq
 
 
-def vae_loss(module, x, beta=1.0, reduce="mean", generator=None, eps=None):
+def vae_loss(module, x, beta=1.0, reduce="mean", generator=None, eps=None,
+             compute_dtype=None):
     """mean(recon + beta * KLD), or the (bsz,) vector with
     ``reduce='per_item'``. ``eps``: the posterior draw, (bsz, z_dim); a flow
     model's KLD is log q(z|x) - log p(z) at that one draw (no closed form
-    through the flow). Returns (loss, {"recon", "kld": batch means, "z"})."""
+    through the flow). ``compute_dtype``: as the module docstring says.
+    Returns (loss, {"recon", "kld": batch means, "z"})."""
     if module.family == AUX:
-        return aux.aux_vae_loss(module, x, beta, reduce, generator, eps)
+        return aux.aux_vae_loss(module, x, beta, reduce, generator, eps,
+                                compute_dtype)
+    net, x_c = cast_module(module, compute_dtype), cast_input(x, compute_dtype)
     if module.family == FLOW:
-        mu, logvar, ctx = module.encode_ctx(x)
+        mu, logvar, ctx = fp32(net.encode_ctx(x_c))
+        # the flow runs on the fp32 parameters
         z, logq = _flow_sample(module, mu, logvar, ctx, generator, eps)
         kld = logq - torch.sum(logprob_gaussian(0.0, 0.0, z), dim=-1)
     else:
-        mu, logvar = module.encode_params(x)
+        mu, logvar = fp32(net.encode_params(x_c))
         z = sample_gaussian(mu, logvar, generator, eps)
         kld = loss_kld_gaussian(mu, logvar, reduce="per_item")
-    recon = ivae_api.recon_loss_fn(module, module.decode_params(z), x)
+    recon = ivae_api.recon_loss_fn(
+        module, fp32(net.decode_params(z.to(x_c.dtype))), x)
     loss = reduce_batch(recon + beta * kld, reduce)
     return loss, {"recon": torch.mean(recon), "kld": torch.mean(kld), "z": z}
 

@@ -30,6 +30,7 @@ only the decoders keep their own xavier law.
 import torch
 import torch.nn as nn
 
+from ardae_tpu_torch.core.precision import cast_input, cast_module, fp32
 from ardae_tpu_torch.core.losses import (
     iwae_bound,
     loss_kld_gaussian,
@@ -213,25 +214,31 @@ def _pair(eps):
 def encode_sample(module, feats, generator=None, eps=None):
     """z0 ~ q(z0|x), then z ~ q(z|x,z0), one draw an item: (mu0, lv0, z0,
     mu, lv, z). ``eps``: the pair (eps0 (bsz, noise_dim), eps (bsz,
-    z_dim)), else drawn from ``generator``, z0's first."""
+    z_dim)), else drawn from ``generator``, z0's first. The towers run in
+    ``feats``' dtype; the head outputs and the draws are fp32."""
     eps0, eps1 = _pair(eps)
-    mu0, lv0 = module.aux_params(feats)
+    mu0, lv0 = fp32(module.aux_params(feats))
     z0 = sample_gaussian(mu0, lv0, generator, eps0)
-    mu, lv = module.main_params(feats, z0)
+    mu, lv = fp32(module.main_params(feats, z0.to(feats.dtype)))
     z = sample_gaussian(mu, lv, generator, eps1)
     return mu0, lv0, z0, mu, lv, z
 
 
-def aux_vae_loss(module, x, beta=1.0, reduce="mean", generator=None, eps=None):
+def aux_vae_loss(module, x, beta=1.0, reduce="mean", generator=None, eps=None,
+                 compute_dtype=None):
     """recon + beta * KL(q(z)) + beta * KL(q(z0) || r(z0|x,z)) (reference
     models/vae/auxmnist.py:313-361), its batch mean or with
     ``reduce='per_item'`` the (bsz,) vector. Returns (loss, {"recon", "kld":
     the two KLDs' batch means summed, logged as one (reference :361),
-    "z"})."""
-    feats = module.trunk_feats(x)
-    mu0, lv0, _, mu, lv, z = encode_sample(module, feats, generator, eps)
-    mup0, lvp0 = module.auxdec_params(feats, z)
-    recon = ivae_api.recon_loss_fn(module, module.decode_params(z), x)
+    "z"}). ``compute_dtype='bfloat16'`` (JAX aux.py:301-335): the towers
+    and the decoder on bf16 copies of the parameters, the Gaussian
+    sampling and the KLDs in fp32."""
+    net, x_c = cast_module(module, compute_dtype), cast_input(x, compute_dtype)
+    feats = net.trunk_feats(x_c)
+    mu0, lv0, _, mu, lv, z = encode_sample(net, feats, generator, eps)
+    z_c = z.to(x_c.dtype)
+    mup0, lvp0 = fp32(net.auxdec_params(feats, z_c))
+    recon = ivae_api.recon_loss_fn(module, fp32(net.decode_params(z_c)), x)
     kld = loss_kld_gaussian(mu, lv, reduce="per_item")
     aux_kld = loss_kld_gaussian_vs_gaussian(mu0, lv0, mup0, lvp0,
                                             reduce="per_item")

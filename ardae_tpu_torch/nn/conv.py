@@ -8,14 +8,22 @@ NHWC).
   * torchkit WNconv2d / ResConv2d (reference models/layers2.py:238-330);
   * torchkit ResLinear, here ResLinear2 (reference models/layers2.py:331-352);
   * x2 bilinear upsampling with align_corners=True (reference resconv
-    decoder) through ``F.interpolate``; the tests hold it against the JAX
-    twin's interpolation-matrix form.
+    decoder): in fp32 through ``F.interpolate``, which the tests hold
+    against the JAX twin's interpolation-matrix form; in bf16 as that form,
+    two products with coefficient matrices in bf16, as JAX rounds them.
+
+Each convolution promotes its operands to their common dtype, as flax does
+(core/precision.py ``promote``).
 """
+
+import functools
+import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ardae_tpu_torch.core.precision import promote
 from ardae_tpu_torch.nn.initializers import torch_default_, xavier_
 from ardae_tpu_torch.nn.linear import WeightNormalizedLinear
 
@@ -46,8 +54,8 @@ class Conv2d(nn.Module):
             torch_default_(self.weight, self.bias, self.fan_in, generator)
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias, stride=self.stride,
-                        padding=self.padding)
+        return F.conv2d(*promote(x, self.weight, self.bias),
+                        stride=self.stride, padding=self.padding)
 
 
 class ConvTranspose2d(nn.Module):
@@ -72,7 +80,8 @@ class ConvTranspose2d(nn.Module):
             torch_default_(self.weight, self.bias, self.fan_in, generator)
 
     def forward(self, x):
-        return F.conv_transpose2d(x, self.weight, self.bias, stride=self.stride,
+        return F.conv_transpose2d(*promote(x, self.weight, self.bias),
+                                  stride=self.stride,
                                   padding=self.padding,
                                   output_padding=self.output_padding)
 
@@ -101,7 +110,8 @@ class WNConv2d(nn.Module):
         if self.norm:
             d = d / torch.sqrt(torch.sum(d * d, dim=(1, 2, 3), keepdim=True))
         w = d * self.scale[:, None, None, None]
-        return F.conv2d(x, w, self.bias, stride=self.stride, padding=self.padding)
+        return F.conv2d(*promote(x, w, self.bias), stride=self.stride,
+                        padding=self.padding)
 
 
 class ResConv2d(nn.Module):
@@ -138,13 +148,45 @@ class ResLinear2(nn.Module):
         return out + (x if self.same_dim else self.dot_01(x))
 
 
+def align_corners_matrix(n_in, n_out):
+    """(n_out, n_in) linear-interpolation weights, align_corners=True (the
+    JAX twin's ``_align_corners_matrix``, fp32)."""
+    w = torch.zeros(n_out, n_in, dtype=torch.float32)
+    if n_out == 1 or n_in == 1:
+        w[:, 0] = 1.0
+        return w
+    scale = (n_in - 1) / (n_out - 1)
+    for i in range(n_out):
+        src = i * scale
+        lo = int(math.floor(src))
+        hi = min(lo + 1, n_in - 1)
+        frac = src - lo
+        w[i, lo] += 1.0 - frac
+        w[i, hi] += frac
+    return w
+
+
+@functools.lru_cache(maxsize=16)
+def _coefficients(n_in, n_out, device, dtype):
+    """align_corners_matrix on ``device`` in ``dtype``, made once: a copy
+    from the host in every decoder call would wait for the device."""
+    return align_corners_matrix(n_in, n_out).to(device, dtype)
+
+
 def upsample_bilinear_align_corners(x, factor: int = 2):
     """(N, C, H, W) -> (N, C, factor*H, factor*W), align_corners=True.
 
-    Through the channels-last layout: PyTorch's CUDA kernel for NCHW spreads
-    only the output pixels over threads and loops over N x C in each, which
-    at the IWS eval's 32,768 decoder rows took nearly all of the eval's
-    time; the channels-last kernel spreads every output element."""
+    fp32: through the channels-last layout: PyTorch's CUDA kernel for NCHW
+    spreads only the output pixels over threads and loops over N x C in
+    each, which at the IWS eval's 32,768 decoder rows took nearly all of
+    the eval's time; the channels-last kernel spreads every output element.
+    bf16: the JAX twin's two products, H first, with coefficient matrices
+    in x's dtype (1/3 becomes 0.33398...), each product rounded to bf16."""
+    if x.dtype == torch.bfloat16:
+        h, w = x.shape[-2:]
+        wh = _coefficients(h, h * factor, x.device, x.dtype)
+        ww = _coefficients(w, w * factor, x.device, x.dtype)
+        return torch.matmul(torch.matmul(wh, x), ww.t())
     y = F.interpolate(x.contiguous(memory_format=torch.channels_last),
                       scale_factor=factor, mode="bilinear", align_corners=True)
     return y.contiguous()

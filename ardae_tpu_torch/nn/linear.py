@@ -9,7 +9,9 @@ layers keep the torchkit parameterisation: ``direction`` (out, in), ``scale``
 (out,) and ``bias`` (out,); ``norm=True`` normalises each output row over its
 in-features (``_row_normalize``: dim 1 here, axis 0 of the twin's (in, out)
 kernels). Layers whose reference ``reset_parameters`` draws the output
-layer from N(0, 1) take ``gaussian=True``.
+layer from N(0, 1) take ``gaussian=True``. Every product goes through
+``linear``, which promotes an fp32 input against bf16 weights to fp32 as
+flax does (core/precision.py).
 """
 
 import math
@@ -18,12 +20,18 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ardae_tpu_torch.core.precision import promote
 from ardae_tpu_torch.nn.initializers import (
     normal_,
     torch_default_,
     uniform_,
     xavier_,
 )
+
+
+def linear(x, weight, bias=None):
+    """F.linear on the operands' common dtype (JAX's promotion)."""
+    return F.linear(*promote(x, weight, bias))
 
 
 def _row_normalize(w):
@@ -65,7 +73,7 @@ class Linear(nn.Module):
                 normal_(self.weight, generator).mul_(self.normal_std)
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        return linear(x, self.weight, self.bias)
 
 
 class WeightNormalizedLinear(nn.Module):
@@ -90,7 +98,7 @@ class WeightNormalizedLinear(nn.Module):
     def forward(self, x):
         # (x @ w) * scale, in the JAX twin's order of operations
         d = _row_normalize(self.direction) if self.norm else self.direction
-        y = F.linear(x, d) * self.scale
+        y = linear(x, d) * self.scale
         return y if self.bias is None else y + self.bias
 
 
@@ -164,7 +172,7 @@ class ContextLinear(nn.Module):
                            generator)
 
     def forward(self, x, ctx):
-        return (1.0 + self.cscale(ctx)) * F.linear(x, self.direction) + self.cbias(ctx)
+        return (1.0 + self.cscale(ctx)) * linear(x, self.direction) + self.cbias(ctx)
 
 
 class ContextWeightNormalizedLinear(nn.Module):
@@ -187,8 +195,8 @@ class ContextWeightNormalizedLinear(nn.Module):
             normal_(self.cscale, generator).mul_(0.005)
 
     def forward(self, x, ctx):
-        scale = 1.0 + 0.1 * F.linear(ctx, _row_normalize(self.cscale))
-        return scale * F.linear(x, self.direction) + self.cbias(ctx)
+        scale = 1.0 + 0.1 * linear(ctx, _row_normalize(self.cscale))
+        return scale * linear(x, self.direction) + self.cbias(ctx)
 
 
 class ContextSoftPlusLinear(nn.Module):
@@ -206,7 +214,7 @@ class ContextSoftPlusLinear(nn.Module):
         uniform_(self.direction, 1.0 / math.sqrt(self.in_features), generator)
 
     def forward(self, x, ctx):
-        return F.softplus(self.cscale(ctx)) * F.linear(x, self.direction) + self.cbias(ctx)
+        return F.softplus(self.cscale(ctx)) * linear(x, self.direction) + self.cbias(ctx)
 
 
 class ContextSoftPlusWeightNormalizedLinear(nn.Module):
@@ -230,9 +238,9 @@ class ContextSoftPlusWeightNormalizedLinear(nn.Module):
                  generator)
 
     def forward(self, x, ctx):
-        scale = F.softplus(F.linear(ctx, _row_normalize(self.cscale))
+        scale = F.softplus(linear(ctx, _row_normalize(self.cscale))
                            + self.cscalebias)
-        return scale * F.linear(x, self.direction) + self.cbias(ctx)
+        return scale * linear(x, self.direction) + self.cbias(ctx)
 
 
 class SimplifiedBilinear(nn.Module):
@@ -269,8 +277,8 @@ class WeightNormalizedSimplifiedBilinear(nn.Module):
         uniform_(self.bias, 1.0 / math.sqrt(self.in1_features), generator)
 
     def forward(self, x1, x2):
-        return (F.linear(x1, self.path1)
-                + F.linear(x2, _row_normalize(self.path2)) + self.bias)
+        return (linear(x1, self.path1)
+                + linear(x2, _row_normalize(self.path2)) + self.bias)
 
 
 class StackedWeightNormalizedSimplifiedBilinear(nn.Module):

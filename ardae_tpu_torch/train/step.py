@@ -15,14 +15,22 @@ PyTorch runs eagerly: the K-step chunk is a Python loop over steps, with the
 batch gather and the Bernoulli binarization on the device. Every random draw
 can be injected (``draws``); otherwise it comes from the explicit generator.
 After each step, ``update_weight_avg`` moves the averaged model (Polyak or
-SWA) in a few ``torch._foreach_*`` passes. The fp32 path only: bf16, remat
-and sample sharding wait (ROADMAP queue 1).
+SWA) in a few ``torch._foreach_*`` passes.
+
+Mixed precision follows the JAX twin (step.py:41-85, :114-264):
+``cdae_compute_dtype='bfloat16'`` runs phase A's sampling pass, its
+hidden1a context and the DSM loss's score net on bf16 copies of the fp32
+parameters, the sigma statistics and the loss product in fp32;
+``model_compute_dtype='bfloat16'`` runs phase B's model loss and its
+detached context and latent-mean passes so, cast back to fp32. The fused
+kernels are fp32 only: ``--use-kernels`` with a bf16 phase A raises.
 """
 
 import dataclasses
 
 import torch
 
+from ardae_tpu_torch.core.precision import cast_input, cast_module, compute_dtype
 from ardae_tpu_torch.data.loader import gather_batches
 from ardae_tpu_torch.models.cdae.cardae import cdae_loss, cdae_score
 from ardae_tpu_torch.models.ivae import api as ivae_api
@@ -51,6 +59,11 @@ class StepConfig:
     # res-style cdae, ops/fused_dsm_grad for a grad-style one); a config the
     # kernel does not cover raises instead of falling back
     use_kernels: bool = False
+    # mixed precision ("float32" | "bfloat16"): phase A's sampling pass,
+    # hidden1a context and score net; phase B's model loss and detached
+    # passes (the JAX twin's fields of the same names)
+    cdae_compute_dtype: str = "float32"
+    model_compute_dtype: str = "float32"
     weight_avg: str = "none"  # none | polyak | swa
     weight_avg_start: int = 1000
     weight_avg_decay: float = 0.998
@@ -78,19 +91,31 @@ def compute_context(model, x, ctx_type):
 
 @torch.no_grad()
 def _sigma_stats(model, x, cfg, generator, latent_eps=None):
-    """Per-item adaptive noise level (reference ivae_ardae.py:748-758)."""
-    latent_mean = ivae_api.encode_det(model, x)                     # (B,1,z)
-    latent = ivae_api.sample_latents(model, x, cfg.train_nz_cdae,
-                                     generator=generator, eps=latent_eps)
+    """Per-item adaptive noise level (reference ivae_ardae.py:748-758). The
+    sampling pass runs in phase A's compute dtype, the statistics in fp32;
+    also returns that pass's model and input, for the hidden1a context."""
+    net = cast_module(model, cfg.cdae_compute_dtype)
+    x_c = cast_input(x, cfg.cdae_compute_dtype)
+    latent_mean = ivae_api.encode_det(net, x_c).float()             # (B,1,z)
+    latent = ivae_api.sample_latents(net, x_c, cfg.train_nz_cdae,
+                                     generator=generator, eps=latent_eps).float()
     lsm = cfg.std_scale * (latent - latent_mean)                    # (B,nz,z)
     std_qz = torch.std(lsm, dim=1, keepdim=True, unbiased=True)     # (B,1,z)
     sigma = cfg.delta * torch.mean(std_qz, dim=2, keepdim=True)     # (B,1,1)
-    return lsm, sigma, latent_mean
+    return lsm, sigma, latent_mean, net, x_c
 
 
-def _phase_a_kernel(cdae, n_rows):
-    """The fused DSM loss of ``cdae``'s style, or raise naming the guard
-    that refused it."""
+def _phase_a_kernel(cdae, n_rows, dtype):
+    """The fused DSM loss of ``cdae``'s style, or raise naming the reason:
+    a bf16 phase A, or the guard that refused the cdae."""
+    if compute_dtype(dtype) is not None:
+        raise NotImplementedError(
+            "--use-kernels with a bf16 phase A (--cdae-compute-dtype "
+            "bfloat16): the fused DSM kernels compute in fp32 only, and the "
+            "JAX twin never dispatches its fused kernel in a bf16 phase A "
+            "(ardae_tpu/train/step.py:186-192, \"the fused path is "
+            "fp32-only\"; it runs XLA there); the port keeps no fallback "
+            "that hides a kernel: drop --use-kernels, or run phase A in fp32")
     guard, loss_fn = _KERNELS[cdae.score_type]
     if not guard(cdae, n_rows):
         raise NotImplementedError(
@@ -109,14 +134,16 @@ def cdae_update(model, cdae, opt_d, cfg, x, generator, draws=None):
     tensors)."""
     draws = draws or {}
     bsz = x.shape[0]
-    lsm, sigma, latent_mean = _sigma_stats(model, x, cfg, generator,
-                                           draws.get("latent_eps"))
+    lsm, sigma, latent_mean, net, x_c = _sigma_stats(
+        model, x, cfg, generator, draws.get("latent_eps"))
     if cfg.ctx_type == "lt0":
         # the std=0 encoding doubles as the context (ivae_ardae.py:735+748)
         ctx = latent_mean.reshape(bsz, -1)
+    elif cfg.ctx_type == "hidden1a":
+        # the std=0 features of the sigma pass's parameters and input, in
+        # its dtype, then fp32 (JAX step.py:157-160)
+        ctx = compute_context(net, x_c, cfg.ctx_type).float()
     else:
-        # hidden1a: the std=0 features of the same parameters and input as
-        # the sigma pass (JAX reuses that pass's compute dtype; fp32 here)
         ctx = compute_context(model, x, cfg.ctx_type)
     ns = cfg.train_nz_cdae * cfg.train_nstd_cdae
     stdmat = sigma * _randn((bsz, ns, 1), generator, x.device, draws.get("std"))
@@ -124,9 +151,13 @@ def cdae_update(model, cdae, opt_d, cfg, x, generator, draws=None):
     lsm_exp = lsm if cfg.train_nstd_cdae == 1 else (
         lsm[:, :, None, :].expand(bsz, cfg.train_nz_cdae, cfg.train_nstd_cdae,
                                   zdim).reshape(bsz, ns, zdim))
-    loss_fn = _phase_a_kernel(cdae, bsz * ns) if cfg.use_kernels else cdae_loss
-    loss = loss_fn(cdae, lsm_exp, ctx, stdmat, generator=generator,
-                   eps=draws.get("dsm_eps"))
+    noise = dict(generator=generator, eps=draws.get("dsm_eps"))
+    if cfg.use_kernels:
+        loss_fn = _phase_a_kernel(cdae, bsz * ns, cfg.cdae_compute_dtype)
+        loss = loss_fn(cdae, lsm_exp, ctx, stdmat, **noise)
+    else:
+        loss = cdae_loss(cdae, lsm_exp, ctx, stdmat,
+                         compute_dtype=cfg.cdae_compute_dtype, **noise)
     opt_d.zero_grad(set_to_none=True)
     loss.backward()
     opt_d.step()
@@ -140,14 +171,18 @@ def model_update(model, cdae, opt_m, cfg, x, beta, generator, draws=None):
     pair)."""
     draws = draws or {}
     bsz, nz = x.shape[0], cfg.train_nz_model
-    model_loss, terms = ivae_api.ivae_loss(model, x, nz, beta=beta,
-                                           generator=generator,
-                                           eps=draws.get("eps"))
+    model_loss, terms = ivae_api.ivae_loss(
+        model, x, nz, beta=beta, generator=generator, eps=draws.get("eps"),
+        compute_dtype=cfg.model_compute_dtype)
     z = terms["z"]
     with torch.no_grad():
-        latent_mean = ivae_api.encode_det(model, x)
+        # the detached passes in phase B's dtype, then fp32 (JAX
+        # step.py:238-251)
+        net = cast_module(model, cfg.model_compute_dtype)
+        x_det = cast_input(x, cfg.model_compute_dtype)
+        latent_mean = ivae_api.encode_det(net, x_det).float()
         ctx = (latent_mean.reshape(bsz, -1) if cfg.ctx_type == "lt0"
-               else compute_context(model, x, cfg.ctx_type))
+               else compute_context(net, x_det, cfg.ctx_type).float())
         score = cdae_score(cdae, cfg.std_scale * (z - latent_mean), ctx, 0.0)
     aux = torch.sum(score * (cfg.std_scale * (z - latent_mean)))
     total = model_loss + beta * aux / (bsz * nz)

@@ -7,7 +7,9 @@ is the one reported. beta comes from the driver's annealing schedule.
 PyTorch runs eagerly: the K-step chunk is a Python loop with the batch
 gather and the Bernoulli binarization on the device. After each step the
 averaged model moves as in the joint step (train/step.py
-``update_weight_avg``; JAX cli/vae.py:248-250).
+``update_weight_avg``; JAX cli/vae.py:248-250). ``compute_dtype``
+"bfloat16" runs the loss in the JAX driver's mixed precision
+(cli/vae.py:234-239; models/vae/api.py ``vae_loss``).
 """
 
 import dataclasses
@@ -22,6 +24,7 @@ from ardae_tpu_torch.train.step import update_weight_avg
 @dataclasses.dataclass(frozen=True)
 class VAEStepConfig:
     loss_scale: float = 1.0
+    compute_dtype: str = "float32"  # float32 | bfloat16
     weight_avg: str = "none"  # none | polyak | swa
     weight_avg_start: int = 1000
     weight_avg_decay: float = 0.998
@@ -33,7 +36,7 @@ def vae_step(state, cfg, batch, beta, generator, eps=None):
     sum. ``eps``: the injected posterior draw (B, z_dim), or an aux model's
     pair (eps0, eps). Returns the metrics (detached)."""
     loss, terms = vae_loss(state.model, batch, beta=beta, generator=generator,
-                           eps=eps)
+                           eps=eps, compute_dtype=cfg.compute_dtype)
     loss = cfg.loss_scale * loss
     state.opt_model.zero_grad(set_to_none=True)
     loss.backward()

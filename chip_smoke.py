@@ -158,8 +158,30 @@ Phases (each failure exits non-zero):
      sample_z card against CPU from the same weights and eps (rel-norm <=
      1e-5). 9c: the legacy DAEs MLPDAE and MLPCDAE, loss, gradients and
      score card against CPU (as 9a).
+  10. runs the canonical sweep's bf16 lines (scripts/run_canonical_sweep.sh
+     BF16 = --cdae-compute-dtype bfloat16 --model-compute-dtype bfloat16,
+     BF16_VAE = --model-compute-dtype bfloat16) at their published widths
+     and batch, 6 steps each, launch counters at 0 before each run and read
+     after: 10a the flagship (:35) + BF16, 10b implicit conv (:41) + BF16
+     (the grad style's double backward in bf16), 10c mnist-concat (:47) +
+     BF16, all three without --use-kernels (the kernels are fp32 only, and a
+     bf16 phase A refuses them) and so with no launch; 10d the resconv,
+     conv and mlp baselines (:16, :22, :28) + BF16_VAE; 10e the round-5
+     bf16 aux row of VALIDATION.md (:38's flags with auxresconvct-clip and
+     --m-lr 0.0003) + BF16, hidden1a context, and the aux baseline (:19) +
+     BF16_VAE; 10f the flagship and implicit conv with
+     --model-compute-dtype bfloat16 --use-kernels: phase A fp32 through
+     the res (2 + 2 launches a step) and grad (1 + 1) kernels, phase B
+     bf16. Each run: finite losses and sigmas, fp32 master parameters,
+     moved parameters. For 10a and 10b, one joint step in bf16 at the
+     line's widths and batch from the same weights, batches and injected
+     draws on the card, on the CPU and in fp32 on the CPU: the metrics card
+     vs CPU within 2e-2 relative, every gradient handed to an optimizer
+     within 5e-2 of the CPU's plus twice the CPU's bf16-to-fp32 distance.
+     It prints each line's ms/step per log interval beside its fp32 twin's
+     (phases 5, 5b, 5d, 5i, 7, 7c).
 Then it prints the kernels' JSON line (each kernel's launches over the
-main path's runs, 5-5i but 5c, 8a-8c and 9b, and by line under "launched_by"; and at its
+main path's runs, 5-5i but 5c, 8a-8c, 9b and 10f, and by line under "launched_by"; and at its
 first line's shape its error, times, FLOP,
 launches per step and bound, the grad kernel's 25-gaussians shape beside
 them under "at_25-gaussians"; the bound is the larger of
@@ -331,6 +353,19 @@ TOY_VIS = TOY_ARGS + ["--vis-interval", "3"]
 BASELINE_POLYAK = with_flags(BASELINE_LINES["resconv"], weight_avg="polyak",
                              weight_avg_start="2") + ["--vis-interval", "2"]
 TOY_MAF_ARGS = with_flags(TOY_VAE_ARGS, model="toy-maf") + ["--vis-interval", "2"]
+# phase 10: the canonical sweep's bf16 lines (scripts/run_canonical_sweep.sh
+# BF16 on :35, :41, :47; BF16_VAE on :16, :22, :28), published widths and
+# batch, depth cut; 10e VALIDATION.md's round-5 bf16 aux row (:38's flags,
+# auxresconvct-clip, --m-lr 0.0003) and the aux baseline :19 in bf16
+BF16 = ["--cdae-compute-dtype", "bfloat16", "--model-compute-dtype", "bfloat16"]
+BF16_VAE = ["--model-compute-dtype", "bfloat16"]
+AUX_BF16_ARGS = with_flags(AUX_LINES["auxresconvct"], model="auxresconvct-clip",
+                           m_lr="0.0003") + BF16
+# 10a / 10b card vs CPU: one joint step at the line's widths and batch
+BF16_CHECK_BS = 128
+BF16_RTOL, BF16_GRAD_RTOL = 2e-2, 5e-2
+
+
 # the tags of one visualization (the JAX drivers' panels, at train mode;
 # tests/test_torch_visualization.py holds each list against the JAX driver):
 # by driver and data, the images and histograms and the encoder scalars
@@ -359,6 +394,7 @@ PIPELINE_ARGS = ["--use-kernels", "--log-interval", "2", "--eval-iws-interval", 
 IWS_ATOL = 1e-3   # nats, per item, card against CPU
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
 TF32_FLOPS, FP32_FLOPS, HBM_BYTES = 495e12, 67e12, 3.35e12   # H100 SXM, 700 W
+MS_STEP = {}   # each driver run's ms/step per log interval, by phase label
 
 
 def fail(msg):
@@ -615,13 +651,15 @@ def flag(args, name):
 
 
 def drive_line(torch, dev, k, kernels, line_args, what, card, steps=STEPS,
-               data_root=None, dump=False):
-    """Phase 5/5b-5i: ``steps`` steps of a line through cli.ivae_ardae.run
-    with --use-kernels (then, with ``dump``, the toy final dump instead of
-    skipping the test eval); every launch counter is 0 just before and read
-    just after. The driver must log the cdae context's width that
-    context_dim_for gives. Returns (this run's launches, the trained
-    state, its ms/step per log interval)."""
+               data_root=None, dump=False, use_kernels=True):
+    """Phase 5/5b-5i, 10: ``steps`` steps of a line through cli.ivae_ardae.run
+    with --use-kernels (without, ``use_kernels`` False: no kernel may
+    launch; then, with ``dump``, the toy final dump instead of skipping the
+    test eval); every launch counter is 0 just before and read just after.
+    The driver must log the cdae context's width that context_dim_for
+    gives; the logged losses and sigmas are finite, the master parameters
+    fp32. Returns (this run's launches, the trained state, its ms/step per
+    log interval), the last also kept in MS_STEP[what]."""
     from ardae_tpu_torch.cli import ivae_ardae
     from ardae_tpu_torch.models.ivae import api as ivae_api
     from ardae_tpu_torch.models.registry import (
@@ -633,8 +671,8 @@ def drive_line(torch, dev, k, kernels, line_args, what, card, steps=STEPS,
     name = flag(line_args, "--model")
     with tempfile.TemporaryDirectory() as tmp:
         smoke = [a for a in SMOKE_ARGS if not (dump and a == "--skip-final-test-eval")]
-        argv = line_args + smoke + [
-            "--use-kernels", "--max-iters", str(steps),
+        argv = line_args + smoke + ["--use-kernels"] * use_kernels + [
+            "--max-iters", str(steps),
             "--cache", os.path.join(tmp, "exp"),
             "--data-root", data_root or os.path.join(tmp, "data")]
         reset_counts(kernels)
@@ -646,7 +684,8 @@ def drive_line(torch, dev, k, kernels, line_args, what, card, steps=STEPS,
         with open(os.path.join(path, "log.txt")) as f:
             log = f.readlines()
     lines = [ln for ln in log if ln.startswith("| iter ")]
-    expected = {n: (steps * k["updates"] if n in k["fn"].launches else 0)
+    expected = {n: (steps * k["updates"]
+                    if use_kernels and n in k["fn"].launches else 0)
                 for n in launches}
     if launches != expected:
         fail(f"{what} {name}: kernel launches {launches}, expected {expected}")
@@ -656,7 +695,14 @@ def drive_line(torch, dev, k, kernels, line_args, what, card, steps=STEPS,
         r"loss \([a-z]+\) (\S+)", ln)]
     if not losses or not all(math.isfinite(v) for v in losses):
         fail(f"non-finite logged losses: {losses}")
+    sigmas = [float(v) for ln in lines for v in re.findall(r"std (\S+)", ln)]
+    if len(sigmas) != 4 * len(lines) or not all(math.isfinite(v) for v in sigmas):
+        fail(f"{what} {name}: logged sigmas {sigmas} not all finite")
+    dtypes = {p.dtype for m in (state.model, state.cdae) for p in m.parameters()}
+    if dtypes != {torch.float32}:
+        fail(f"{what} {name}: master parameters {dtypes}, expected fp32")
     ms_step = [float(re.search(r"ms/step\s+(\S+)", ln).group(1)) for ln in lines]
+    MS_STEP[what] = ms_step
     nchannels, nheight = int(flag(line_args, "--nchannels")), int(flag(line_args, "--nheight"))
     z_dim, h_dim = int(flag(line_args, "--model-z-dim")), int(flag(line_args, "--model-h-dim"))
     ctx_type = flag(line_args, "--cdae-ctx-type")
@@ -671,7 +717,8 @@ def drive_line(torch, dev, k, kernels, line_args, what, card, steps=STEPS,
         n_dim=int(flag(line_args, "--model-n-dim")),
         n_layers=int(flag(line_args, "--model-n-layers")),
         nonlin=flag(line_args, "--model-nonlin"), seed=0, device=dev)
-    init_d = build_cdae(k["cdae"], input_dim=z_dim, context_dim=ctx_dim,
+    init_d = build_cdae(flag(line_args, "--cdae"), input_dim=z_dim,
+                        context_dim=ctx_dim,
                         h_dim=int(flag(line_args, "--cdae-h-dim")),
                         n_layers=int(flag(line_args, "--cdae-n-layers")),
                         nonlin=flag(line_args, "--cdae-nonlin"), seed=1, device=dev)
@@ -689,8 +736,9 @@ def drive_line(torch, dev, k, kernels, line_args, what, card, steps=STEPS,
         fail(f"trained encoder output {tuple(z.shape)} not finite/(8, 1, {z_dim})")
     if dump:
         check_dump(log, line_args, what)
-    print(f"{what} main path: {steps} steps of the {name} line with "
-          f"--use-kernels in {wall:.1f} s (set-up{' and dump' if dump else ''} "
+    print(f"{what} main path: {steps} steps of the {name} line "
+          f"{'with' if use_kernels else 'without'} --use-kernels in {wall:.1f} s "
+          f"(set-up{' and dump' if dump else ''} "
           f"included); cdae context {ctx_type} {ctx_dim} wide; ms/step per log "
           f"interval {ms_step}; steady {ms_step[-1]:.2f} ms/step = "
           f"{1000.0 / ms_step[-1]:.3f} steps/s; kernel launches {launches}; "
@@ -771,6 +819,7 @@ def check_pipeline_run(k, launches, lines, steps, iters, n_evals, files, path,
     ms_step = [float(re.search(r"ms/step\s+(\S+)", ln).group(1))
                for ln in lines if ln.startswith("| iter ")]
     print(f"{what}: ms/step per log interval {ms_step}", flush=True)
+    MS_STEP[what] = ms_step
     missing = [f for f in files if not os.path.exists(os.path.join(path, f))]
     if missing:
         fail(f"{what}: missing checkpoint files {missing}")
@@ -977,14 +1026,16 @@ def drive_aux(torch, dev, res, grad, kernels, card, launches):
     torch.cuda.empty_cache()
 
 
-def drive_baseline_line(torch, dev, kernels, line, tmp, card, what=None):
-    """Phase 7/7c: STEPS steps of a baseline line through cli.vae with no
-    eval; no kernel may launch, the logged losses are finite and the
-    parameters move. Returns the trained state."""
+def drive_baseline_line(torch, dev, kernels, line, tmp, card, what=None,
+                        extra=()):
+    """Phase 7/7c/10: STEPS steps of a baseline line (plus ``extra``)
+    through cli.vae with no eval; no kernel may launch, the logged losses
+    are finite, the master parameters fp32 and moved. Returns the trained
+    state."""
     from ardae_tpu_torch.cli import vae
 
     what = what or f"phase 7 {line}"
-    argv = BASELINE_LINES[line] + SMOKE_ARGS + [
+    argv = BASELINE_LINES[line] + list(extra) + SMOKE_ARGS + [
         "--max-iters", str(STEPS), "--cache", os.path.join(tmp, "exp"),
         "--data-root", os.path.join(tmp, "data")]
     state, path, launches, lines = pipeline_run(torch, kernels, None, argv, what,
@@ -1021,6 +1072,9 @@ def baseline_checks(torch, dev, state, launches, lines, path, model, what, card)
               for v in re.findall(r"\| (?:loss(?: \(\w+\))?|elbo) (\S+)", ln)]
     if len(values) != 4 * (STEPS // 2) or not all(math.isfinite(v) for v in values):
         fail(f"{what}: logged losses {values} not all finite")
+    dtypes = {p.dtype for p in state.model.parameters()}
+    if dtypes != {torch.float32}:
+        fail(f"{what}: master parameters {dtypes}, expected fp32")
     init = build_vae_model(**model, seed=0, device=dev)
     moved = sum(float((p.detach() - q.detach()).abs().max()) > 0
                 for p, q in zip(state.model.parameters(), init.parameters()))
@@ -1634,6 +1688,171 @@ def drive_legacy(torch):
               f"grad rel-norm {grel:.2e}, score rel-norm {srel:.2e}", flush=True)
 
 
+class _Recorder:
+    """An optimizer that keeps the gradients it is handed (on the CPU)."""
+
+    def __init__(self, opt, module):
+        self.opt, self.module, self.last = opt, module, None
+
+    def zero_grad(self, set_to_none=True):
+        self.opt.zero_grad(set_to_none=set_to_none)
+
+    def step(self):
+        self.last = {k: p.grad.detach().float().cpu() for k, p in
+                     self.module.named_parameters() if p.grad is not None}
+        self.opt.step()
+
+
+def bf16_step_card_vs_cpu(torch, line_args, what, card):
+    """Phase 10a/10b: one joint step of the line in bf16 (both phases,
+    the plain score net) from the same weights, batches (BF16_CHECK_BS
+    items) and injected draws on the card and on the CPU, and in fp32 on
+    the CPU. Bounds: every metric (losses, sigma statistics) card vs CPU
+    within BF16_RTOL relative; every gradient handed to an optimizer (the
+    last cdae update's and the model's) ||card - CPU|| <= BF16_GRAD_RTOL
+    ||CPU|| + 2 ||CPU - CPU fp32||, the bound of tests/test_torch_bf16.py
+    (the two devices accumulate bf16 sums in other orders, as JAX and the
+    port do)."""
+    import copy
+
+    from ardae_tpu_torch.cli import ivae_ardae
+    from ardae_tpu_torch.models.registry import (
+        build_cdae,
+        build_ivae_model,
+        context_dim_for,
+    )
+    from ardae_tpu_torch.train.optim import build_optimizer
+    from ardae_tpu_torch.train.state import create_train_state
+    from ardae_tpu_torch.train.step import StepConfig, one_step
+
+    opt = ivae_ardae.build_parser().parse_args(line_args)
+    ctx_dim = context_dim_for(opt.cdae_ctx_type, model_name=opt.model,
+                              nchannels=opt.nchannels, nheight=opt.nheight,
+                              z_dim=opt.model_z_dim, h_dim=opt.model_h_dim)
+    model = build_ivae_model(
+        opt.model, nchannels=opt.nchannels, nheight=opt.nheight,
+        z_dim=opt.model_z_dim, h_dim=opt.model_h_dim, n_dim=opt.model_n_dim,
+        n_layers=opt.model_n_layers, nonlin=opt.model_nonlin, seed=0,
+        device="cpu")
+    cdae = build_cdae(opt.cdae, input_dim=opt.model_z_dim, context_dim=ctx_dim,
+                      h_dim=opt.cdae_h_dim, n_layers=opt.cdae_n_layers,
+                      nonlin=opt.cdae_nonlin, seed=1, device="cpu")
+    gen = torch.Generator().manual_seed(10)
+    bs, u, nz = BF16_CHECK_BS, opt.num_cdae_updates, opt.train_nz_cdae
+    ns, d = nz * opt.train_nstd_cdae, opt.nchannels * opt.nheight ** 2
+    cdae_b = (torch.rand(u, bs, d, generator=gen) < 0.3).float()
+    model_b = (torch.rand(bs, d, generator=gen) < 0.3).float()
+    draws = {"cdae": [{
+        "latent_eps": torch.randn(bs * nz, model.noise_dim, generator=gen),
+        "std": torch.randn(bs, ns, 1, generator=gen),
+        "dsm_eps": torch.randn(bs * ns, opt.model_z_dim, generator=gen)}
+        for _ in range(u)],
+        "model": {"eps": torch.randn(bs * opt.train_nz_model, model.noise_dim,
+                                     generator=gen)}}
+    out = {}
+    for label, dev, dtype in (("card", "cuda", "bfloat16"),
+                              ("cpu", "cpu", "bfloat16"),
+                              ("cpu fp32", "cpu", "float32")):
+        m, c = copy.deepcopy(model).to(dev), copy.deepcopy(cdae).to(dev)
+        # the driver's optimizers (its quirk: the model's rmsprop momentum
+        # is --d-momentum)
+        opt_m = _Recorder(build_optimizer(opt.m_optimizer, m.parameters(),
+                                          opt.m_lr, beta1=opt.m_beta1,
+                                          momentum=opt.d_momentum), m)
+        opt_d = _Recorder(build_optimizer(opt.d_optimizer, c.parameters(),
+                                          opt.d_lr, beta1=opt.d_beta1,
+                                          momentum=opt.d_momentum), c)
+        state = create_train_state(m, opt_m, c, opt_d)
+        cfg = StepConfig(
+            std_scale=opt.std_scale, delta=opt.delta, num_cdae_updates=u,
+            train_nz_cdae=nz, train_nstd_cdae=opt.train_nstd_cdae,
+            train_nz_model=opt.train_nz_model, ctx_type=opt.cdae_ctx_type,
+            cdae_compute_dtype=dtype, model_compute_dtype=dtype)
+        on = {"cdae": [{k: v.to(dev) for k, v in dd.items()} for dd in draws["cdae"]],
+              "model": {"eps": draws["model"]["eps"].to(dev)}}
+        t0 = time.perf_counter()
+        met = one_step(state, cfg, cdae_b.to(dev), model_b.to(dev), 1.0, None, on)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[label] = ({k: float(v) for k, v in met.items()},
+                      {**{"cdae." + k: g for k, g in opt_d.last.items()},
+                       **{"model." + k: g for k, g in opt_m.last.items()}}, secs)
+        del m, c, state
+    (mc, gc, sc), (mp, gp, sp), (_, g32, s32) = (out[k] for k in
+                                                 ("card", "cpu", "cpu fp32"))
+    worst_m = max(abs(mc[k] / mp[k] - 1.0) for k in mp)
+    if not all(math.isfinite(v) for v in mc.values()) or worst_m > BF16_RTOL:
+        fail(f"{what}: bf16 step metrics card {mc} vs CPU {mp}")
+    if gc.keys() != gp.keys():
+        fail(f"{what}: gradients on {sorted(gc ^ gp)} differ")
+    ratios = {}
+    for k in gp:
+        err = float((gc[k] - gp[k]).norm())
+        bound = (BF16_GRAD_RTOL * float(gp[k].norm())
+                 + 2.0 * float((gp[k] - g32[k]).norm()))
+        ratios[k] = err / max(bound, 1e-30)
+    worst = max(ratios, key=ratios.get)
+    if ratios[worst] > 1.0:
+        fail(f"{what}: bf16 gradient {worst} card vs CPU past its bound "
+             f"({ratios[worst]:.2f} of it)")
+    rel = {k: rel_norm(gc[k], gp[k]) for k in gp}
+    print(f"{what}: one bf16 step (bs {bs}, the line's widths) card vs CPU: "
+          f"metrics worst rel {worst_m:.2e} (bound {BF16_RTOL}); gradients "
+          f"worst rel-norm {max(rel.values()):.2e} ({max(rel, key=rel.get)}), "
+          f"worst share of the bound {ratios[worst]:.2f} ({worst}); step "
+          f"seconds card {sc:.2f}, CPU bf16 {sp:.2f}, CPU fp32 {s32:.2f} | "
+          f"{card}", flush=True)
+
+
+def drive_bf16(torch, dev, res, grad, kernels, card, by_line):
+    """Phase 10: the canonical sweep's bf16 lines, STEPS steps each
+    (10a-10e without --use-kernels: the kernels are fp32 only, so no launch
+    may happen; 10f with a bf16 phase B only and --use-kernels: the
+    kernels' launches, into ``by_line``). Each run: finite losses and
+    sigmas, fp32 master parameters, moved parameters; 10a and 10b also one
+    step card vs CPU. Prints each line's ms/step per log interval beside
+    its fp32 twin's."""
+    twins = []
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        for what, k, args, twin in (
+                ("phase 10a flagship", res, FLAGSHIP_ARGS, "phase 5"),
+                ("phase 10b implicit-conv", grad, IMPLICIT_CONV_ARGS, "phase 5b"),
+                ("phase 10c mnist-concat", grad, MNIST_CONCAT_ARGS, "phase 5d")):
+            drive_line(torch, dev, k, kernels, args + BF16, what, card,
+                       data_root=data, use_kernels=False)
+            torch.cuda.empty_cache()
+            if what != "phase 10c mnist-concat":
+                bf16_step_card_vs_cpu(torch, args + BF16, what, card)
+            twins.append((what, twin))
+        for line, twin in (("resconv", "phase 7 resconv train"),
+                           ("conv", "phase 7 conv"), ("mlp", "phase 7 mlp")):
+            what = f"phase 10d {line}"
+            drive_baseline_line(torch, dev, kernels, line, tmp, card, what=what,
+                                extra=BF16_VAE)
+            twins.append((what, twin))
+        drive_line(torch, dev, res, kernels, AUX_BF16_ARGS,
+                   "phase 10e auxresconvct-clip", card, data_root=data,
+                   use_kernels=False)
+        drive_baseline_line(torch, dev, kernels, "auxresconv", tmp, card,
+                            what="phase 10e auxresconv", extra=BF16_VAE)
+        twins += [("phase 10e auxresconvct-clip", "phase 5i"),
+                  ("phase 10e auxresconv", "phase 7c auxresconv")]
+        for what, k, line, args, twin in (
+                ("phase 10f flagship", res, "flagship", FLAGSHIP_ARGS, "phase 5"),
+                ("phase 10f implicit-conv", grad, "implicit-conv",
+                 IMPLICIT_CONV_ARGS, "phase 5b")):
+            by_line[f"{line}-bf16-phase-b"], _, _ = drive_line(
+                torch, dev, k, kernels, args + BF16_VAE, what, card,
+                data_root=data)
+            twins.append((what, twin))
+            torch.cuda.empty_cache()
+    for what, twin in twins:
+        print(f"{what} (bf16) ms/step per log interval {MS_STEP[what]}; fp32 "
+              f"twin {twin} {MS_STEP[twin]} | {card}", flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1734,6 +1953,9 @@ def main():
     by_line["toy-encoders"] = drive_toy_encoders(torch, dev, grad, kernels, card)
     drive_legacy(torch)
     print(f"phase 9 passed in {time.perf_counter() - t9:.1f} s", flush=True)
+    t10 = time.perf_counter()
+    drive_bf16(torch, dev, res, grad, kernels, card, by_line)
+    print(f"phase 10 passed in {time.perf_counter() - t10:.1f} s", flush=True)
     launches = {n: sum(c[n] for c in by_line.values()) for k in kernels
                 for n in k["fn"].launches}
     launched_by = {n: {line: c[n] for line, c in by_line.items() if c[n]}

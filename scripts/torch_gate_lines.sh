@@ -6,7 +6,8 @@
 #
 # Each line's flags (its module ardae_tpu.cli.X becomes ardae_tpu_torch.cli.X)
 # plus run_canonical_sweep.sh's COMMON with --vis-interval 0, plus
-# --use-kernels on an implicit (ivae_ardae) line, plus FLAGS. The experiment
+# --use-kernels on an implicit (ivae_ardae) line unless FLAGS run phase A in
+# bf16 (--cdae-compute-dtype bfloat16: the kernels are fp32 only), plus FLAGS. The experiment
 # directories and the data live under WORKDIR (a checkpoint is 10-80 MB);
 # each process's output goes to LOGDIR/line<N>.out and, when it ends, its
 # experiment's log.txt to LOGDIR/line<N>.log. Exits non-zero if a run failed.
@@ -26,7 +27,11 @@ run_line () {  # $1 = line number of scripts/run_vae_dbmnist.sh
         | sed 's#ardae_tpu\.cli\.#ardae_tpu_torch.cli.#' \
         | sed "s#--cache [^ ]*#--cache $WORK/exp#")
   case "$cmd" in
-    *ardae_tpu_torch.cli.ivae_ardae*) kernels="--use-kernels" ;;
+    *ardae_tpu_torch.cli.ivae_ardae*)
+      case "$EXTRA" in
+        *"--cdae-compute-dtype bfloat16"*) ;;
+        *) kernels="--use-kernels" ;;
+      esac ;;
     *ardae_tpu_torch.cli.vae*) ;;
     *) echo "line $1 is not a driver line: $cmd" >&2; return 2 ;;
   esac

@@ -6,7 +6,9 @@ sbMNIST, and of the four other resconv fc heads with --use-kernels; the
 whole pipeline
 (val IWS eval, best and periodic checkpoints, the test eval from the best
 checkpoint, resume, final mode) on val and test splits cut to 64 items; and
-the flags and configs the port does not cover, which must raise."""
+the flags and configs the port does not cover, which must raise, among them
+--use-kernels with a bf16 phase A. The bf16 runs themselves are
+tests/test_torch_bf16_cli.py."""
 
 import math
 import os
@@ -147,7 +149,8 @@ def test_resconv_heads_two_steps_on_cpu(tmp_path, model, head):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--cdae-compute-dtype", "bfloat16"], "bf16"),
+    # bf16 trains now; the fused kernels refuse a bf16 phase A
+    (["--cdae-compute-dtype", "bfloat16", "--use-kernels"], "bf16"),
     (["--dp-devices", "2"], "dp-devices"),
     (["--profile-dir", "prof"], "profile"),
 ])
@@ -238,16 +241,12 @@ def test_use_kernels_on_uncovered_cdae_raises(tmp_path):
 
 
 def test_unported_model_raises(tmp_path):
-    """Every --model name trains now (the aux ones: test_torch_aux_cli.py);
-    the legacy --cdae mlp model is still refused, as in JAX, and an aux line
-    with an unported flag raises naming its ROADMAP item."""
+    """Every --model name trains now (the aux ones: test_torch_aux_cli.py;
+    in bf16 too: test_torch_bf16_cli.py); the legacy --cdae mlp model is
+    still refused, as in JAX."""
     args = _args(tmp_path)
     args[args.index("mlp-res")] = "mlp"
     with pytest.raises(NotImplementedError, match="legacy"):
-        ivae_ardae.run(args)
-    args = _args(tmp_path, "--model-compute-dtype", "bfloat16")
-    args[args.index("resconvct-res")] = "auxmnist"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         ivae_ardae.run(args)
 
 
