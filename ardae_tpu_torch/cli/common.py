@@ -16,7 +16,7 @@ import torch
 
 from ardae_tpu_torch import data
 from ardae_tpu_torch.io.checkpoint import load_checkpoint, load_end_iter
-from ardae_tpu_torch.io.logging import get_time, logging, make_writer
+from ardae_tpu_torch.io.logging import _NullWriter, get_time, logging, make_writer
 
 TEST_EVAL_TAG = 999_983  # the test eval's generator tag (JAX: fold_in(k_eval, 999_983))
 DUMP_TAG = 999_979       # the toy final dump's (JAX: fold_in(k_eval, 999_979))
@@ -34,9 +34,37 @@ def select_device(no_cuda):
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --no-cuda to run on the CPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
+    return rank_device("cuda")
+
+
+def rank_device(device):
+    """``device`` as a mesh rank's, TF32 off on a card (``select_device``)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def mesh_devices(no_cuda, n, refusal):
+    """The device of each of n ranks: CPU processes under ``--no-cuda``
+    (their count is the caller's), else a card a rank; raises SystemExit
+    with ``refusal`` (formatted with ``n`` and the cards there are, ``m``)
+    when there are fewer cards, as the JAX drivers do."""
+    if no_cuda:
+        return ["cpu"] * n
+    m = torch.cuda.device_count()
+    if m < n:
+        raise SystemExit(refusal.format(n=n, m=m))
+    return [f"cuda:{r}" for r in range(n)]
+
+
+def log_mesh(mesh, path):
+    """The JAX drivers' mesh line, with the backend."""
+    kind = "(data, sample)" if mesh.sp > 1 else "data-parallel"
+    shape = f" (dp={mesh.dp}, sp={mesh.sp})" if mesh.sp > 1 else ""
+    logging(f"{kind} mesh over {mesh.size} {mesh.device.type} devices{shape} "
+            f"| backend {mesh.backend}", path=path)
 
 
 def eval_generator(seed, tag, device):
@@ -48,29 +76,39 @@ def eval_generator(seed, tag, device):
     return torch.Generator(device=device).manual_seed(int(state))
 
 
-def open_run(opt, derive_experiment, device):
+def open_run(opt, derive_experiment, device, mesh=None):
     """The set-up both drivers share, in this order: the dataset (final mode
     folds val into train), the iteration count, the experiment directory
     (the latest matching one under ``--resume``, else a new one), final
     mode's end iteration, and the log's header. Sets ``opt.path``,
     ``opt.experiment`` and ``opt.best_val_loss`` (None). Returns (splits,
-    steps per epoch, total iterations, end iteration or None, writer)."""
+    steps per epoch, total iterations, end iteration or None, writer).
+    Under a ``mesh``, rank 0 does it; the other ranks then take its
+    experiment directory and read the dataset it cached, with no writer."""
     opt.best_val_loss = None
     final_mode = opt.train_mode == "final"
-    splits = data.get_dataset(opt.dataset, root=opt.data_root,
-                              final_mode=final_mode,
-                              toy_sizes=toy_sizes(opt.toy_train_size))
-    steps_per_epoch = splits["train"].shape[0] // opt.train_batch_size
-    total_iters = opt.epochs * steps_per_epoch
-    if opt.max_iters is not None:
-        total_iters = min(total_iters, opt.max_iters)
-
+    lead = mesh is None or mesh.rank == 0
+    load = lambda: data.get_dataset(opt.dataset, root=opt.data_root,
+                                    final_mode=final_mode,
+                                    toy_sizes=toy_sizes(opt.toy_train_size))
+    splits = load() if lead else None
     if opt.cache is None:
         opt.cache = "experiments"
     if opt.experiment is None:
         opt.experiment = derive_experiment(opt)
-    opt.path = resolve_experiment_path(opt.cache, opt.experiment, opt.resume)
+    if lead:
+        opt.path = resolve_experiment_path(opt.cache, opt.experiment, opt.resume)
+    if mesh is not None:
+        opt.path = mesh.share(opt.path if lead else None)
+    if not lead:
+        splits = load()
+    steps_per_epoch = splits["train"].shape[0] // opt.train_batch_size
+    total_iters = opt.epochs * steps_per_epoch
+    if opt.max_iters is not None:
+        total_iters = min(total_iters, opt.max_iters)
     end_iter = load_end_iter(opt.path, "best-checkpoint") if final_mode else None
+    if not lead:
+        return splits, steps_per_epoch, total_iters, end_iter, _NullWriter()
     logging(str(opt), path=opt.path)
     writer = make_writer(opt.path)
     if opt.dataset in TOY_DATASETS:
@@ -86,6 +124,8 @@ def open_run(opt, derive_experiment, device):
     logging(f"device: {device}"
             + (f" ({torch.cuda.get_device_name(device)})"
                if device.type == "cuda" else ""), path=opt.path)
+    if mesh is not None:
+        log_mesh(mesh, opt.path)
     return splits, steps_per_epoch, total_iters, end_iter, writer
 
 
@@ -114,7 +154,7 @@ def resume_run(state, opt, flavor, generator):
 
 
 def run_pipeline(opt, state, generator, run, train_chunk, evaluate, log_train,
-                 visualize, final=None):
+                 visualize, final=None, mesh=None):
     """The pipeline both drivers share once their state is built: resume
     from ``checkpoint`` (``final-checkpoint`` in final mode), train in
     chunks that end at every cadence boundary, log, halt on a NaN/Inf
@@ -132,11 +172,18 @@ def run_pipeline(opt, state, generator, run, train_chunk, evaluate, log_train,
     returns the train line's tail and its scalars {name: value}.
     ``visualize(state, i_ep)`` writes the panels of iteration ``i_ep``.
     ``final(writer)``, where given, takes the test eval's place (the toy
-    final dump), after one more visualization, as in the JAX drivers."""
+    final dump), after one more visualization, as in the JAX drivers.
+
+    Under a ``mesh`` every rank resumes from the same checkpoint (the
+    training generator included) and trains; rank 0 alone logs, evaluates,
+    visualizes, checkpoints and runs the test eval or the dump, while the
+    others wait at a barrier. The evals and panels draw from their own
+    generators, so the ranks' training generators stay in lockstep."""
     from ardae_tpu_torch.io.checkpoint import save_checkpoint
 
     splits, steps_per_epoch, total_iters, end_iter, writer = run
     final_mode = opt.train_mode == "final"
+    lead = mesh is None or mesh.rank == 0
     prefix = "final-" if final_mode else ""
     i_ep = resume_run(state, opt, f"{prefix}checkpoint", generator)
 
@@ -196,8 +243,15 @@ def run_pipeline(opt, state, generator, run, train_chunk, evaluate, log_train,
                 start_time = time.time()
 
             t_side = time.time()
-            if (not final_mode and opt.eval_iws_interval > 0
-                    and i_ep % opt.eval_iws_interval == 0):
+            evals = (not final_mode and opt.eval_iws_interval > 0
+                     and i_ep % opt.eval_iws_interval == 0)
+            vis = opt.vis_interval > 0 and i_ep % opt.vis_interval == 0
+            ckpt = opt.ckpt_interval > 0 and i_ep % opt.ckpt_interval == 0
+            if not lead:
+                if evals or vis or ckpt:
+                    mesh.barrier()
+                continue
+            if evals:
                 bounds, text = timed_eval("val", i_ep)
                 for _, name, v in bounds:
                     writer.add_scalar(f"val/{name}/step", v, i_ep)
@@ -207,10 +261,12 @@ def run_pipeline(opt, state, generator, run, train_chunk, evaluate, log_train,
                 if opt.best_val_loss is None or logprob > opt.best_val_loss:
                     opt.best_val_loss = logprob
                     save("best-checkpoint")
-            if opt.vis_interval > 0 and i_ep % opt.vis_interval == 0:
+            if vis:
                 timed_visualize()
-            if opt.ckpt_interval > 0 and i_ep % opt.ckpt_interval == 0:
+            if ckpt:
                 save(f"{prefix}checkpoint")
+            if mesh is not None and (evals or vis or ckpt):
+                mesh.barrier()
             # eval, visualization and checkpoint time stays out of the next ms/step
             start_time += time.time() - t_side
 
@@ -219,10 +275,13 @@ def run_pipeline(opt, state, generator, run, train_chunk, evaluate, log_train,
         writer.close()
         return state, opt.path
     except EndIterError:
-        save(f"{prefix}checkpoint")
+        if lead:
+            save(f"{prefix}checkpoint")
         writer.flush()
         banner("End of training (final)")
 
+    if not lead:
+        return state, opt.path
     if opt.skip_final_test_eval:
         logging("| skipping final test eval (--skip-final-test-eval)",
                 path=opt.path)

@@ -29,17 +29,21 @@ panels to the writer. ``--m-weight-avg polyak|swa`` keeps an averaged model,
 which the evals, the panels and the dump read. The eval and visualization
 draws come from generators of their own, seeded from (``--seed``,
 iteration), never from the training generator, so neither the eval or
-visualization cadence nor a resume shifts the training noise. Flags the
-port does not cover (``--dp-devices`` / ``--sp-devices``,
-``--profile-dir``, jacobian clamping) raise NotImplementedError naming
-their ROADMAP item whenever the run would use them; none is ignored in
-silence.
+visualization cadence nor a resume shifts the training noise.
+``--dp-devices N`` / ``--sp-devices M`` train on a (data, sample) mesh of
+N x M ranks (parallel/, train/step.py; JAX's checks and log line), rank 0
+in this process. ``--profile-dir DIR`` writes a ``torch.profiler`` Chrome
+trace of the first chunk after iteration 0 into DIR (rank 0's). Jacobian
+clamping (``--lmbd-*``) and ``--cdae mlp``, which the JAX driver refuses
+too, raise NotImplementedError; no flag is ignored in silence.
 
-Device: ``--no-cuda`` selects the CPU, as in the reference; otherwise the
-run needs a CUDA device and raises without one.
+Device: ``--no-cuda`` selects the CPU, as in the reference (a mesh's ranks
+are then CPU processes); otherwise the run needs a CUDA device a rank and
+raises without one.
 """
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -187,21 +191,12 @@ def derive_experiment(opt):
     return "-".join(parts)
 
 
-_Q = "ROADMAP queue 1, "
-
-
 def _unsupported_flags(opt):
-    """The flags of this run the port does not have yet, each with the
-    ROADMAP item that ports it."""
-    q = _Q
+    """The flags of this run that the JAX driver refuses too."""
     out = []
     if opt.lmbd_init != 0.0 or opt.lmbd_fin != 0.0:
         out.append("jacobian clamping (--lmbd-*) is dormant in the reference "
                    "too: every model's jac_clamping_loss raises")
-    if opt.dp_devices > 1 or opt.sp_devices > 1:
-        out.append(f"--dp-devices/--sp-devices: {q}slice 7 item 15")
-    if opt.profile_dir is not None:
-        out.append("--profile-dir: ROADMAP queue 1 (profiling, with the bench)")
     if opt.cdae == "mlp":
         out.append("--cdae mlp (legacy reconstruction DAE) is unused by the "
                    "reference driver; use mlp-res or mlp-grad")
@@ -213,10 +208,80 @@ def main(argv=None):
     return 0
 
 
-def run(argv=None):
-    """Train as ``main`` does; returns (TrainState, experiment directory)."""
-    opt = build_parser().parse_args(argv)
+def _mesh_shape(opt):
+    """(dp, sp) of the run, with the JAX driver's checks and messages
+    (ardae_tpu/cli/ivae_ardae.py:378-390); (1, 1) on one device."""
+    dp = opt.dp_devices if opt.dp_devices > 1 else 0
+    sp = opt.sp_devices if opt.sp_devices > 1 else 0
+    if not (dp or sp):
+        return 1, 1
+    n_dp = dp or 1
+    if opt.train_batch_size % n_dp:
+        raise SystemExit(f"--train-batch-size {opt.train_batch_size} not "
+                         f"divisible by --dp-devices {opt.dp_devices}")
+    if sp and opt.train_nz_cdae % sp:
+        raise SystemExit(f"--train-nz-cdae {opt.train_nz_cdae} not divisible "
+                         f"by --sp-devices {sp}")
+    return n_dp, sp or 1
 
+
+def run(argv=None):
+    """Train as ``main`` does; returns (TrainState, experiment directory),
+    rank 0's on a mesh."""
+    from ardae_tpu_torch.cli.common import mesh_devices, select_device
+    from ardae_tpu_torch.parallel.launch import launch
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    opt = build_parser().parse_args(argv)
+    missing = _unsupported_flags(opt)
+    if missing:
+        raise NotImplementedError("refused, as by the JAX driver: "
+                                  + "; ".join(missing))
+    dp, sp = _mesh_shape(opt)
+    if dp * sp == 1:
+        return _train(opt, select_device(opt.no_cuda))
+    devices = mesh_devices(opt.no_cuda, dp * sp,
+                           "mesh needs {n} devices but only {m} are available")
+    return launch(_rank, devices, argv, dp, sp)[0]
+
+
+def _rank(device, argv, dp, sp):
+    """One rank of a mesh run: rank 0 returns (state, path), the others
+    None."""
+    from ardae_tpu_torch.cli.common import rank_device
+    from ardae_tpu_torch.io.logging import silence
+    from ardae_tpu_torch.parallel.mesh import sample_parallel_mesh
+
+    mesh = sample_parallel_mesh(dp, sp, device)
+    if mesh.rank:
+        silence()
+    out = _train(build_parser().parse_args(argv), rank_device(device), mesh)
+    return None if mesh.rank else out
+
+
+def _profiled(opt, device, chunk, i_ep, k):
+    """``chunk()`` under torch.profiler (the CPU, and the card's kernels on
+    a card), its Chrome trace written into ``--profile-dir`` (JAX
+    cli/ivae_ardae.py:529-545)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ardae_tpu_torch.io.logging import logging
+
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        metrics = chunk()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    os.makedirs(opt.profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        opt.profile_dir, f"iter{i_ep + 1}-{i_ep + k}.trace.json"))
+    logging(f"profiler trace written to {opt.profile_dir}", path=opt.path)
+    return metrics
+
+
+def _train(opt, device, mesh=None):
+    """The run on ``device``, one rank of ``mesh`` where given."""
     from ardae_tpu_torch.cli.common import (
         TOY_DATASETS,
         VIS_TAG,
@@ -227,7 +292,6 @@ def run(argv=None):
         latent_panels,
         open_run,
         run_pipeline,
-        select_device,
         toy_final_dump,
         vis_pool,
         write_grid_panels,
@@ -244,16 +308,11 @@ def run(argv=None):
     from ardae_tpu_torch.train.state import create_train_state
     from ardae_tpu_torch.train.step import StepConfig, train_chunk
 
-    missing = _unsupported_flags(opt)
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
-    device = select_device(opt.no_cuda)
-
     for name in ("beta_annealing", "eta_annealing", "lmbd_annealing"):
         v = getattr(opt, name)
         if v is None or v < 1:
             setattr(opt, name, None)
-    run_info = open_run(opt, derive_experiment, device)
+    run_info = open_run(opt, derive_experiment, device, mesh)
     splits = run_info[0]
 
     model = build_ivae_model(
@@ -306,12 +365,19 @@ def run(argv=None):
     stream = IndexStream(train_np.shape[0], opt.train_batch_size, seed=opt.seed + 1)
     binarize = bool(splits["info"].get("binarize", False))
 
+    profile = [opt.profile_dir is not None and (mesh is None or mesh.rank == 0)]
+
     def train(k):
         c_idx = stream.take(k * opt.num_cdae_updates).reshape(
             k, opt.num_cdae_updates, opt.train_batch_size)
         m_idx = stream.take(k)
-        return train_chunk(state, cfg, data_dev, c_idx, m_idx, generator,
-                           beta_fn, binarize=binarize)
+        chunk = lambda: train_chunk(state, cfg, data_dev, c_idx, m_idx, generator,
+                                    beta_fn, binarize=binarize, mesh=mesh)
+        if not (profile[0] and state.step > 0):
+            return chunk()
+        # once: the first chunk after iteration 0 (JAX: i_ep > 0)
+        profile[0] = False
+        return _profiled(opt, device, chunk, state.step, k)
 
     # the aux models' covariance jitter (JAX cli/ivae_ardae.py:408)
     jitter = 1e-5 if model.family == "aux" else 0.0
@@ -408,7 +474,7 @@ def run(argv=None):
                        ivae_api.generate, writer)
 
     return run_pipeline(opt, state, generator, run_info, train, evaluate,
-                        log_train, visualize, final if is_toy else None)
+                        log_train, visualize, final if is_toy else None, mesh)
 
 
 if __name__ == "__main__":

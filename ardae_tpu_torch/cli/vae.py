@@ -23,12 +23,14 @@ panels and the dump read. The eval and visualization draws come from
 generators of their own seeded from (``--seed``, iteration), never from
 the training generator. ``--model-compute-dtype bfloat16`` trains in the
 JAX driver's mixed precision (models/vae/api.py ``vae_loss``); evaluation,
-averaging and checkpoints stay fp32. ``--dp-devices``, which the port does
-not cover, raises NotImplementedError naming its ROADMAP item whenever the
-run would use it; no flag is ignored in silence.
+averaging and checkpoints stay fp32. ``--dp-devices N`` trains on a
+data-parallel mesh of N ranks (parallel/, train/vae_step.py; the JAX
+driver's checks and log line), rank 0 in this process; no flag is ignored
+in silence.
 
-Device: ``--no-cuda`` selects the CPU, as in the reference; otherwise the
-run needs a CUDA device and raises without one.
+Device: ``--no-cuda`` selects the CPU, as in the reference (a mesh's ranks
+are then CPU processes); otherwise the run needs a CUDA device a rank and
+raises without one.
 """
 
 import argparse
@@ -128,27 +130,47 @@ def derive_experiment(opt):
     return "-".join(parts)
 
 
-_Q = "ROADMAP queue 1, "
-
-
-def _unsupported_flags(opt):
-    """The parts of this run the port does not have yet, each with the
-    ROADMAP item that ports it."""
-    out = []
-    if opt.dp_devices > 1:
-        out.append(f"--dp-devices: {_Q}slice 7 item 15")
-    return out
-
-
 def main(argv=None):
     run(argv)
     return 0
 
 
 def run(argv=None):
-    """Train as ``main`` does; returns (TrainState, experiment directory)."""
-    opt = build_parser().parse_args(argv)
+    """Train as ``main`` does; returns (TrainState, experiment directory),
+    rank 0's on a mesh."""
+    from ardae_tpu_torch.cli.common import mesh_devices, select_device
+    from ardae_tpu_torch.parallel.launch import launch
 
+    argv = list(sys.argv[1:] if argv is None else argv)
+    opt = build_parser().parse_args(argv)
+    if opt.dp_devices <= 1:
+        return _train(opt, select_device(opt.no_cuda))
+    # the JAX driver's checks and messages (ardae_tpu/cli/vae.py:278-285)
+    if opt.train_batch_size % opt.dp_devices:
+        raise SystemExit(f"--train-batch-size {opt.train_batch_size} not "
+                         f"divisible by --dp-devices {opt.dp_devices}")
+    devices = mesh_devices(opt.no_cuda, opt.dp_devices,
+                           "--dp-devices {n} but only {m} devices are available")
+    return launch(_rank, devices, argv)[0]
+
+
+def _rank(device, argv):
+    """One rank of a mesh run: rank 0 returns (state, path), the others
+    None."""
+    from ardae_tpu_torch.cli.common import rank_device
+    from ardae_tpu_torch.io.logging import silence
+    from ardae_tpu_torch.parallel.mesh import make_mesh
+
+    opt = build_parser().parse_args(argv)
+    mesh = make_mesh(opt.dp_devices, device)
+    if mesh.rank:
+        silence()
+    out = _train(opt, rank_device(device), mesh)
+    return None if mesh.rank else out
+
+
+def _train(opt, device, mesh=None):
+    """The run on ``device``, one rank of ``mesh`` where given."""
     from ardae_tpu_torch.cli.common import (
         TOY_DATASETS,
         VIS_TAG,
@@ -159,7 +181,6 @@ def run(argv=None):
         latent_panels,
         open_run,
         run_pipeline,
-        select_device,
         toy_final_dump,
         vis_pool,
         write_grid_panels,
@@ -172,14 +193,9 @@ def run(argv=None):
     from ardae_tpu_torch.train.state import create_train_state
     from ardae_tpu_torch.train.vae_step import VAEStepConfig, train_vae_chunk
 
-    missing = _unsupported_flags(opt)
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
-    device = select_device(opt.no_cuda)
-
     if opt.beta_annealing is None or opt.beta_annealing < 1:
         opt.beta_annealing = None
-    run_info = open_run(opt, derive_experiment, device)
+    run_info = open_run(opt, derive_experiment, device, mesh)
     splits = run_info[0]
 
     model = build_vae_model(
@@ -210,7 +226,7 @@ def run(argv=None):
 
     def train_chunk(k):
         return train_vae_chunk(state, cfg, data_dev, stream.take(k), generator,
-                               beta_fn, binarize=binarize)
+                               beta_fn, binarize=binarize, mesh=mesh)
 
     def evaluate(split, tag):
         elbo, logprob = evaluate_iwae_vae(
@@ -273,7 +289,7 @@ def run(argv=None):
                        vae_api.generate, writer)
 
     return run_pipeline(opt, state, generator, run_info, train_chunk, evaluate,
-                        log_train, visualize, final if is_toy else None)
+                        log_train, visualize, final if is_toy else None, mesh)
 
 
 if __name__ == "__main__":

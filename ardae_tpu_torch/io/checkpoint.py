@@ -23,6 +23,7 @@ import pickle
 
 import torch
 
+from ardae_tpu_torch.io.logging import logging
 from ardae_tpu_torch.train.state import avg_copy
 
 # what torch.load raises on a partial or foreign file
@@ -89,12 +90,12 @@ def _read_with_recovery(target, map_location):
         try:
             pending = _read(tmp_save, map_location)
         except _UNREADABLE as e:
-            print(f"=> recovery candidate '{tmp_save}' unreadable ({e}); skipping")
+            logging(f"=> recovery candidate '{tmp_save}' unreadable ({e}); skipping")
             return live, target
         live_at = _meta_recency(live)
         if live_at >= 0 and _meta_recency(pending) > live_at:
-            print(f"=> recovered newer complete save '{tmp_save}' over the "
-                  "live checkpoint (crash between save and swap)")
+            logging(f"=> recovered newer complete save '{tmp_save}' over the "
+                    "live checkpoint (crash between save and swap)")
             return pending, tmp_save
         return live, target
     for cand, is_recovery in ((target, False), (tmp_save, True),
@@ -106,10 +107,10 @@ def _read_with_recovery(target, map_location):
         except _UNREADABLE as e:
             if not is_recovery:
                 raise
-            print(f"=> recovery candidate '{cand}' unreadable ({e}); skipping")
+            logging(f"=> recovery candidate '{cand}' unreadable ({e}); skipping")
             continue
         if is_recovery:
-            print(f"=> recovered checkpoint from an interrupted save: '{cand}'")
+            logging(f"=> recovered checkpoint from an interrupted save: '{cand}'")
         return payload, cand
     return None
 
@@ -129,21 +130,21 @@ def load_checkpoint(state, path, filename="checkpoint", generator=None):
     device = next(state.model.parameters()).device
     rec = _read_with_recovery(target, device)
     if rec is None:
-        print(f"=> no checkpoint found at '{target}'")
+        logging(f"=> no checkpoint found at '{target}'")
         return None
     payload, source = rec
     saved_avg = "avg_model" in payload["state"]
     if saved_avg and state.avg_model is None:
         state.avg_model, state.avg_count = avg_copy(state.model), 0
-        print("=> checkpoint carries averaged params; widened the skeleton")
+        logging("=> checkpoint carries averaged params; widened the skeleton")
     elif not saved_avg and state.avg_model is not None:
         state.avg_model, state.avg_count = None, None
-        print("=> checkpoint has no averaged params; narrowed the skeleton"
-              " (evaluate with the live params)")
+        logging("=> checkpoint has no averaged params; narrowed the skeleton"
+                " (evaluate with the live params)")
     state.load_state_dict(payload["state"])
     if generator is not None and payload["generator"] is not None:
         generator.set_state(payload["generator"].cpu())
-    print(f"=> loaded checkpoint '{source}'")
+    logging(f"=> loaded checkpoint '{source}'")
     return state, dict(payload["meta"])
 
 

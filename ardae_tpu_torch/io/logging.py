@@ -5,8 +5,19 @@ utils/msc.py:117-127)."""
 import datetime
 import os
 
+# set in the processes of a mesh's ranks 1..N-1 (cli drivers), whose rank 0
+# writes the run's log: logging is then a no-op in that process
+_SILENT = []
+
+
+def silence():
+    """No logging from this process from now on."""
+    _SILENT.append(True)
+
 
 def logging(s: str, path=None, filename: str = "log.txt"):
+    if _SILENT:
+        return
     print(s, flush=True)
     if path is not None:
         with open(os.path.join(path, filename), "a+") as f:

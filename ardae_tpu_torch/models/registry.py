@@ -4,9 +4,10 @@ ardae_tpu/models/registry.py). The port builds every implicit VAE name
 and the seven aux ones), both cdae styles, and every baseline VAE name
 (``toy``, ``toy-maf``, ``mnist``, ``conv``, ``resconv(ct)`` and the aux
 ``auxtoy``, ``auxmnist``, ``auxconv``, ``auxresconv(ct)``); ``--cdae mlp``
-raises NotImplementedError naming its ROADMAP item. Every build function puts the module
-on the card unless the caller asks for the CPU (``device="cpu"``); without
-a card that default raises rather than falling back."""
+raises NotImplementedError, as JAX's registry raises for it. Every build
+function puts the module on the card unless the caller asks for the CPU
+(``device="cpu"``); without a card that default raises rather than falling
+back."""
 
 import torch
 
@@ -47,10 +48,12 @@ _RESCONV_ENC = {  # name -> (fc head, do_center)
 AUX_RESCONV_C = 450  # the aux resconv trunk's context width (JAX registry)
 
 _LATER = {
-    # porting models/cdae/legacy.py (queue 1) will not make it build: both
-    # drivers refuse --cdae mlp, as the JAX ones do
-    "cdae mlp": ("the legacy reconstruction DAE, which no driver builds "
-                 "(ROADMAP queue 1, models/cdae/legacy.py)"),
+    # models/cdae/legacy.py has the legacy DAEs, but no registry builds one:
+    # the JAX registry raises "unknown cdae: mlp" (ardae_tpu/models/
+    # registry.py:182), and both drivers refuse --cdae mlp
+    "cdae mlp": ("the legacy reconstruction DAE: no driver builds it, nor "
+                 "any registry (JAX's raises 'unknown cdae: mlp'); "
+                 "models/cdae/legacy.py has it for direct use"),
 }
 
 
@@ -179,7 +182,7 @@ def build_cdae(name, *, input_dim, context_dim, h_dim=128, n_layers=2,
         make = MLPGradCARDAE
     else:
         raise NotImplementedError(
-            f"cdae {name!r} is not ported yet: {_later('cdae ' + name)}")
+            f"cdae {name!r}: {_later('cdae ' + name)}")
     cdae = make(input_dim=input_dim, context_dim=context_dim, h_dim=h_dim,
                 num_hidden_layers=n_layers, nonlinearity=nonlin)
     return _init(cdae, seed, device)

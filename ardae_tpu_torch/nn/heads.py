@@ -3,8 +3,9 @@ models/reparam.py:12-203).
 
 Heads return distribution parameters only; sampling is
 ``core/rng.sample_gaussian`` with an injected or generator-drawn noise. The
-relaxed samplers (Binary-Concrete, Gumbel-Softmax) wait for the models that
-use them (ROADMAP queue 1, slice 5).
+relaxed samplers (Binary-Concrete, Gumbel-Softmax) and CategoricalHead,
+which only the JAX tests call, wait with the rest of that driverless code
+(ROADMAP queue 1, item 14b).
 """
 
 import torch

@@ -99,11 +99,12 @@ class FusedDSMFunction(torch.autograd.Function):
                                                  native.int_array(out_dims))
         scratch = torch.empty(n_scratch, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_dsm_fwd(
-            n, d, n // bsz, L, l0, ACTS[act], xbar.data_ptr(), eps.data_ptr(),
-            sigma.data_ptr(), ctx_l0.data_ptr(), h, native.ptr_array(ws), native.ptr_array(bs),
-            native.int_array(in_dims), native.int_array(out_dims), native.int_array(ldw), acts.data_ptr(), h,
-            r.data_ptr(), scratch.data_ptr(), loss.data_ptr(), stream)
+        with torch.profiler.record_function("fused_dsm_fwd"):  # its name in a trace
+            err = lib.fused_dsm_fwd(
+                n, d, n // bsz, L, l0, ACTS[act], xbar.data_ptr(), eps.data_ptr(),
+                sigma.data_ptr(), ctx_l0.data_ptr(), h, native.ptr_array(ws), native.ptr_array(bs),
+                native.int_array(in_dims), native.int_array(out_dims), native.int_array(ldw), acts.data_ptr(), h,
+                r.data_ptr(), scratch.data_ptr(), loss.data_ptr(), stream)
         if err:
             raise RuntimeError(f"fused_dsm_fwd launch failed: CUDA error {err}")
         FusedDSMFunction.launches["fused_dsm_fwd"] += 1
@@ -129,13 +130,14 @@ class FusedDSMFunction(torch.autograd.Function):
         dp1 = torch.empty((n, width), device=dev)
         scratch = torch.empty(n_scratch, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_dsm_bwd(
-            n, d, n // ctx.bsz, len(ws), ctx.l0, ACTS[ctx.act],
-            xbar.data_ptr(), eps.data_ptr(), sigma.data_ptr(), g.data_ptr(),
-            native.ptr_array(ws), native.int_array(in_dims), native.int_array(out_dims), native.int_array(ldw),
-            acts.data_ptr(), h, r.data_ptr(), native.ptr_array(dws), native.ptr_array(dbs),
-            dctx.data_ptr(), h, dp0.data_ptr(), dp1.data_ptr(),
-            scratch.data_ptr(), stream)
+        with torch.profiler.record_function("fused_dsm_bwd"):  # its name in a trace
+            err = lib.fused_dsm_bwd(
+                n, d, n // ctx.bsz, len(ws), ctx.l0, ACTS[ctx.act],
+                xbar.data_ptr(), eps.data_ptr(), sigma.data_ptr(), g.data_ptr(),
+                native.ptr_array(ws), native.int_array(in_dims), native.int_array(out_dims), native.int_array(ldw),
+                acts.data_ptr(), h, r.data_ptr(), native.ptr_array(dws), native.ptr_array(dbs),
+                dctx.data_ptr(), h, dp0.data_ptr(), dp1.data_ptr(),
+                scratch.data_ptr(), stream)
         if err:
             raise RuntimeError(f"fused_dsm_bwd launch failed: CUDA error {err}")
         FusedDSMFunction.launches["fused_dsm_bwd"] += 1

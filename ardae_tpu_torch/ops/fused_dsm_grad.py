@@ -98,13 +98,14 @@ class FusedDSMGradFunction(torch.autograd.Function):
             n, L, native.int_array(in_dims), native.int_array(out_dims))
         scratch = torch.empty(n_scratch, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_dsm_grad_fwd(
-            n, d, n // bsz, L, l0, ACTS[act], xbar.data_ptr(), eps.data_ptr(),
-            sigma.data_ptr(), ctx_l0.data_ptr(), h, native.ptr_array(ws),
-            native.ptr_array(bs), native.int_array(in_dims),
-            native.int_array(out_dims), native.int_array(ldw),
-            acts.data_ptr(), deltas.data_ptr(), h, resid.data_ptr(),
-            scratch.data_ptr(), loss.data_ptr(), stream)
+        with torch.profiler.record_function("fused_dsm_grad_fwd"):  # its name in a trace
+            err = lib.fused_dsm_grad_fwd(
+                n, d, n // bsz, L, l0, ACTS[act], xbar.data_ptr(), eps.data_ptr(),
+                sigma.data_ptr(), ctx_l0.data_ptr(), h, native.ptr_array(ws),
+                native.ptr_array(bs), native.int_array(in_dims),
+                native.int_array(out_dims), native.int_array(ldw),
+                acts.data_ptr(), deltas.data_ptr(), h, resid.data_ptr(),
+                scratch.data_ptr(), loss.data_ptr(), stream)
         if err:
             raise RuntimeError(f"fused_dsm_grad_fwd launch failed: CUDA error {err}")
         FusedDSMGradFunction.launches["fused_dsm_grad_fwd"] += 1
@@ -132,15 +133,16 @@ class FusedDSMGradFunction(torch.autograd.Function):
         ap1 = torch.empty((n, h), device=dev)
         scratch = torch.empty(n_scratch, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_dsm_grad_bwd(
-            n, d, n // ctx.bsz, len(ws), ctx.l0, ACTS[ctx.act],
-            xbar.data_ptr(), sigma.data_ptr(), resid.data_ptr(), g.data_ptr(),
-            native.ptr_array(ws), native.int_array(in_dims),
-            native.int_array(out_dims), native.int_array(ldw),
-            acts.data_ptr(), deltas.data_ptr(), h, native.ptr_array(dws),
-            native.ptr_array(dbs), dctx.data_ptr(), h, tan0.data_ptr(),
-            tans.data_ptr(), curvs.data_ptr(), ap0.data_ptr(), ap1.data_ptr(),
-            scratch.data_ptr(), stream)
+        with torch.profiler.record_function("fused_dsm_grad_bwd"):  # its name in a trace
+            err = lib.fused_dsm_grad_bwd(
+                n, d, n // ctx.bsz, len(ws), ctx.l0, ACTS[ctx.act],
+                xbar.data_ptr(), sigma.data_ptr(), resid.data_ptr(), g.data_ptr(),
+                native.ptr_array(ws), native.int_array(in_dims),
+                native.int_array(out_dims), native.int_array(ldw),
+                acts.data_ptr(), deltas.data_ptr(), h, native.ptr_array(dws),
+                native.ptr_array(dbs), dctx.data_ptr(), h, tan0.data_ptr(),
+                tans.data_ptr(), curvs.data_ptr(), ap0.data_ptr(), ap1.data_ptr(),
+                scratch.data_ptr(), stream)
         if err:
             raise RuntimeError(f"fused_dsm_grad_bwd launch failed: CUDA error {err}")
         FusedDSMGradFunction.launches["fused_dsm_grad_bwd"] += 1

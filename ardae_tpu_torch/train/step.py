@@ -24,6 +24,17 @@ parameters, the sigma statistics and the loss product in fp32;
 ``model_compute_dtype='bfloat16'`` runs phase B's model loss and its
 detached context and latent-mean passes so, cast back to fp32. The fused
 kernels are fp32 only: ``--use-kernels`` with a bf16 phase A raises.
+
+Data and sample parallelism (``mesh``, parallel/mesh.py; JAX: the jitted
+step under a ("data", "sample") mesh with ``shard_samples``, step.py:79-96):
+each rank takes its items of the batch and its samples of phase A's
+nz_cdae axis (all of them when the mesh's sample axis is 1). Every draw is
+made at its global shape and sliced, so the generators stay in lockstep.
+The sigma statistics (a std over nz, two passes) sum over the sample group;
+the gradients are averaged over the world before each optimizer step, and
+a chunk's last metrics reduced so that rank 0 reports what a world of one
+reports. Phase B is not split over samples: the ranks of a sample group
+run it alike. ``mesh=None`` is the one-process step.
 """
 
 import dataclasses
@@ -39,6 +50,7 @@ from ardae_tpu_torch.ops.fused_dsm_grad import (
     fused_cdae_dsm_grad_loss,
     supports_fused_dsm_grad,
 )
+from ardae_tpu_torch.parallel.mesh import local
 
 # --use-kernels: each cdae style's hand-written kernel and the guard that
 # decides whether it covers a cdae
@@ -89,18 +101,50 @@ def compute_context(model, x, ctx_type):
     raise NotImplementedError(ctx_type)
 
 
+def _local_rows(mesh, t, bsz, ssz, samples):
+    """This rank's rows of a global (bsz*ssz, w) draw whose rows run item by
+    item (and of an aux model's pair, each), its samples too where
+    ``samples``."""
+    if mesh is None:
+        return t
+    if isinstance(t, tuple):
+        return tuple(_local_rows(mesh, e, bsz, ssz, samples) for e in t)
+    block = local(mesh, t.reshape(bsz, ssz, -1), 0, 1 if samples else None)
+    return block.reshape(-1, t.shape[-1])
+
+
+def _encoder_noise(model, x, nz, generator, injected, mesh, samples):
+    """The encoder noise of nz samples an item at the global batch's shape
+    (injected, or drawn as ``make_eps`` draws it), then this rank's rows."""
+    bsz = x.shape[0] * (1 if mesh is None else mesh.dp)
+    eps = injected if injected is not None else ivae_api.make_eps(
+        model, bsz, nz, generator=generator, device=x.device)
+    return _local_rows(mesh, eps, bsz, nz, samples)
+
+
 @torch.no_grad()
-def _sigma_stats(model, x, cfg, generator, latent_eps=None):
+def _sigma_stats(model, x, cfg, generator, latent_eps=None, mesh=None):
     """Per-item adaptive noise level (reference ivae_ardae.py:748-758). The
     sampling pass runs in phase A's compute dtype, the statistics in fp32;
-    also returns that pass's model and input, for the hidden1a context."""
+    also returns that pass's model and input, for the hidden1a context.
+    On a mesh with a sample axis the rank draws its samples only, and the
+    std over nz (ddof 1) is two sums over the sample group, the mean's and
+    the squared deviations', as ``jnp.std`` computes it."""
     net = cast_module(model, cfg.cdae_compute_dtype)
     x_c = cast_input(x, cfg.cdae_compute_dtype)
     latent_mean = ivae_api.encode_det(net, x_c).float()             # (B,1,z)
-    latent = ivae_api.sample_latents(net, x_c, cfg.train_nz_cdae,
-                                     generator=generator, eps=latent_eps).float()
+    eps = _encoder_noise(model, x, cfg.train_nz_cdae, generator, latent_eps,
+                         mesh, True)
+    nz = cfg.train_nz_cdae // (1 if mesh is None else mesh.sp)
+    latent = ivae_api.sample_latents(net, x_c, nz, eps=eps).float()
     lsm = cfg.std_scale * (latent - latent_mean)                    # (B,nz,z)
-    std_qz = torch.std(lsm, dim=1, keepdim=True, unbiased=True)     # (B,1,z)
+    if mesh is not None and mesh.sp > 1:
+        n = cfg.train_nz_cdae
+        mean = mesh.sample_sum(lsm.sum(dim=1, keepdim=True)) / n
+        var = mesh.sample_sum(((lsm - mean) ** 2).sum(dim=1, keepdim=True)) / (n - 1)
+        std_qz = torch.sqrt(var)
+    else:
+        std_qz = torch.std(lsm, dim=1, keepdim=True, unbiased=True)  # (B,1,z)
     sigma = cfg.delta * torch.mean(std_qz, dim=2, keepdim=True)     # (B,1,1)
     return lsm, sigma, latent_mean, net, x_c
 
@@ -127,15 +171,16 @@ def _phase_a_kernel(cdae, n_rows, dtype):
     return loss_fn
 
 
-def cdae_update(model, cdae, opt_d, cfg, x, generator, draws=None):
+def cdae_update(model, cdae, opt_d, cfg, x, generator, draws=None, mesh=None):
     """One PHASE-A update, in place. ``draws``: optional injected
     ``latent_eps`` (B*nz, noise; an aux model's pair), ``std`` (B, nz*nstd,
-    1), ``dsm_eps`` (B*nz*nstd, z). Returns the metrics (detached
-    tensors)."""
+    1), ``dsm_eps`` (B*nz*nstd, z), at the global batch's shapes. ``x`` is
+    this rank's part of the batch under a ``mesh``. Returns the metrics
+    (detached tensors)."""
     draws = draws or {}
     bsz = x.shape[0]
     lsm, sigma, latent_mean, net, x_c = _sigma_stats(
-        model, x, cfg, generator, draws.get("latent_eps"))
+        model, x, cfg, generator, draws.get("latent_eps"), mesh)
     if cfg.ctx_type == "lt0":
         # the std=0 encoding doubles as the context (ivae_ardae.py:735+748)
         ctx = latent_mean.reshape(bsz, -1)
@@ -145,34 +190,40 @@ def cdae_update(model, cdae, opt_d, cfg, x, generator, draws=None):
         ctx = compute_context(net, x_c, cfg.ctx_type).float()
     else:
         ctx = compute_context(model, x, cfg.ctx_type)
-    ns = cfg.train_nz_cdae * cfg.train_nstd_cdae
-    stdmat = sigma * _randn((bsz, ns, 1), generator, x.device, draws.get("std"))
-    zdim = lsm.shape[-1]
-    lsm_exp = lsm if cfg.train_nstd_cdae == 1 else (
-        lsm[:, :, None, :].expand(bsz, cfg.train_nz_cdae, cfg.train_nstd_cdae,
-                                  zdim).reshape(bsz, ns, zdim))
-    noise = dict(generator=generator, eps=draws.get("dsm_eps"))
+    nz, nstd, zdim = lsm.shape[1], cfg.train_nstd_cdae, lsm.shape[-1]
+    # the world's items and samples an item; this rank has bsz and nz * nstd
+    full, ns = bsz * (1 if mesh is None else mesh.dp), cfg.train_nz_cdae * nstd
+    std = _randn((full, ns, 1), generator, x.device, draws.get("std"))
+    stdmat = sigma * local(mesh, std, 0, 1)
+    lsm_exp = lsm if nstd == 1 else (
+        lsm[:, :, None, :].expand(bsz, nz, nstd, zdim).reshape(bsz, nz * nstd, zdim))
+    eps = _local_rows(mesh, _randn((full * ns, zdim), generator, x.device,
+                                   draws.get("dsm_eps")), full, ns, True)
     if cfg.use_kernels:
-        loss_fn = _phase_a_kernel(cdae, bsz * ns, cfg.cdae_compute_dtype)
-        loss = loss_fn(cdae, lsm_exp, ctx, stdmat, **noise)
+        loss_fn = _phase_a_kernel(cdae, bsz * nz * nstd, cfg.cdae_compute_dtype)
+        loss = loss_fn(cdae, lsm_exp, ctx, stdmat, eps=eps)
     else:
-        loss = cdae_loss(cdae, lsm_exp, ctx, stdmat,
-                         compute_dtype=cfg.cdae_compute_dtype, **noise)
+        loss = cdae_loss(cdae, lsm_exp, ctx, stdmat, eps=eps,
+                         compute_dtype=cfg.cdae_compute_dtype)
     opt_d.zero_grad(set_to_none=True)
     loss.backward()
+    if mesh is not None:
+        mesh.average_grads(cdae.parameters())
     opt_d.step()
     return {"cdae_loss": loss.detach(), "std_eff_mean": sigma.mean(),
             "std_eff_max": sigma.max(), "std_eff_min": sigma.min()}
 
 
-def model_update(model, cdae, opt_m, cfg, x, beta, generator, draws=None):
+def model_update(model, cdae, opt_m, cfg, x, beta, generator, draws=None,
+                 mesh=None):
     """PHASE B, in place: ELBO-without-entropy + injected entropy gradient.
     ``draws``: optional injected ``eps`` (B*nz, noise_dim; an aux model's
-    pair)."""
+    pair), at the global batch's shape."""
     draws = draws or {}
     bsz, nz = x.shape[0], cfg.train_nz_model
+    eps = _encoder_noise(model, x, nz, generator, draws.get("eps"), mesh, False)
     model_loss, terms = ivae_api.ivae_loss(
-        model, x, nz, beta=beta, generator=generator, eps=draws.get("eps"),
+        model, x, nz, beta=beta, generator=generator, eps=eps,
         compute_dtype=cfg.model_compute_dtype)
     z = terms["z"]
     with torch.no_grad():
@@ -185,26 +236,34 @@ def model_update(model, cdae, opt_m, cfg, x, beta, generator, draws=None):
                else compute_context(net, x_det, cfg.ctx_type).float())
         score = cdae_score(cdae, cfg.std_scale * (z - latent_mean), ctx, 0.0)
     aux = torch.sum(score * (cfg.std_scale * (z - latent_mean)))
+    # the rank's own bsz: its loss is a mean over its part, and the world's
+    # average of the parts' gradients is the whole batch's
     total = model_loss + beta * aux / (bsz * nz)
     opt_m.zero_grad(set_to_none=True)
     total.backward()
+    if mesh is not None:
+        mesh.average_grads(model.parameters())
     opt_m.step()
     return {"model_loss": model_loss.detach(), "recon_loss": terms["recon"].detach(),
             "prior_loss": terms["prior"].detach()}
 
 
-def one_step(state, cfg, cdae_batches, model_batch, beta, generator, draws=None):
-    """One joint step on (U, B, D) phase-A batches and a (B, D) phase-B batch.
-    ``draws``: optional {"cdae": [per-update draws], "model": draws}."""
+def one_step(state, cfg, cdae_batches, model_batch, beta, generator, draws=None,
+             mesh=None):
+    """One joint step on (U, B, D) phase-A batches and a (B, D) phase-B batch
+    (this rank's items under a ``mesh``). ``draws``: optional {"cdae":
+    [per-update draws], "model": draws}. Returns this rank's metrics
+    (``train_chunk`` reduces a chunk's last over the world)."""
     draws = draws or {}
     metrics = {}
     for i in range(cfg.num_cdae_updates):
         cd = draws.get("cdae")
         metrics.update(cdae_update(state.model, state.cdae, state.opt_cdae, cfg,
                                    cdae_batches[i], generator,
-                                   cd[i] if cd else None))
+                                   cd[i] if cd else None, mesh))
     metrics.update(model_update(state.model, state.cdae, state.opt_model, cfg,
-                                model_batch, beta, generator, draws.get("model")))
+                                model_batch, beta, generator, draws.get("model"),
+                                mesh))
     state.step += 1
     update_weight_avg(state, cfg)
     return metrics
@@ -242,22 +301,24 @@ def update_weight_avg(state, cfg):
 
 
 def train_chunk(state, cfg, data, cdae_idx, model_idx, generator, beta_fn,
-                binarize=False, draws=None):
+                binarize=False, draws=None, mesh=None):
     """K joint steps: the Python-loop counterpart of the JAX lax.scan chunk.
 
     data: (N, D) on the device; cdae_idx (K, U, B) and model_idx (K, B)
-    integer indices. ``draws``: optional per-step list of {"bin_cdae": (U, B,
-    D) and "bin_model": (B, D) uniforms, "step": one_step's draws}. Returns
-    the last step's metrics."""
+    integer indices of the global batch (a ``mesh`` rank gathers its items
+    only). ``draws``: optional per-step list of {"bin_cdae": (U, B, D) and
+    "bin_model": (B, D) uniforms, "step": one_step's draws}. Returns the
+    last step's metrics, reduced over the world under a mesh (two
+    collectives a chunk)."""
     metrics = None
     for k in range(len(model_idx)):
         d = draws[k] if draws else {}
         c_idx = torch.as_tensor(cdae_idx[k], device=data.device)
         m_idx = torch.as_tensor(model_idx[k], device=data.device)
         cdae_batches = gather_batches(data, c_idx, binarize, generator,
-                                      d.get("bin_cdae"))
+                                      d.get("bin_cdae"), mesh, items_axis=1)
         model_batch = gather_batches(data, m_idx, binarize, generator,
-                                     d.get("bin_model"))
+                                     d.get("bin_model"), mesh)
         metrics = one_step(state, cfg, cdae_batches, model_batch,
-                           beta_fn(state.step), generator, d.get("step"))
-    return metrics
+                           beta_fn(state.step), generator, d.get("step"), mesh)
+    return metrics if mesh is None or metrics is None else mesh.reduce_metrics(metrics)

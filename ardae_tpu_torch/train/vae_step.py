@@ -10,6 +10,12 @@ averaged model moves as in the joint step (train/step.py
 ``update_weight_avg``; JAX cli/vae.py:248-250). ``compute_dtype``
 "bfloat16" runs the loss in the JAX driver's mixed precision
 (cli/vae.py:234-239; models/vae/api.py ``vae_loss``).
+
+Data parallelism (``mesh``, a 1-D parallel/mesh.py mesh; JAX: the chunk
+under ``make_mesh``, cli/vae.py:270-291): each rank takes its items of the
+batch, its part of the binarization and posterior draws cut from draws at
+the global batch's shape, the gradient is averaged over the world before
+the optimizer step and a chunk's last metrics by their mean.
 """
 
 import dataclasses
@@ -17,7 +23,8 @@ import dataclasses
 import torch
 
 from ardae_tpu_torch.data.loader import gather_batches
-from ardae_tpu_torch.models.vae.api import vae_loss
+from ardae_tpu_torch.models.vae.api import AUX, vae_loss
+from ardae_tpu_torch.parallel.mesh import local
 from ardae_tpu_torch.train.step import update_weight_avg
 
 
@@ -30,35 +37,56 @@ class VAEStepConfig:
     weight_avg_decay: float = 0.998
 
 
-def vae_step(state, cfg, batch, beta, generator, eps=None):
-    """One update of ``state`` in place on a (B, D) batch; an aux model's
-    loss is ``aux_vae_loss`` (through ``vae_loss``), its KLD the two terms'
-    sum. ``eps``: the injected posterior draw (B, z_dim), or an aux model's
-    pair (eps0, eps). Returns the metrics (detached)."""
+def posterior_noise(model, bsz, generator, device):
+    """The posterior draw ``vae_loss`` makes for a batch of bsz items, in its
+    order: (bsz, z_dim), or an aux model's pair (eps0 (bsz, noise_dim), eps
+    (bsz, z_dim))."""
+    widths = (model.noise_dim, model.z_dim) if model.family == AUX else (model.z_dim,)
+    draws = tuple(torch.randn((bsz, w), generator=generator, device=device)
+                  for w in widths)
+    return draws if model.family == AUX else draws[0]
+
+
+def vae_step(state, cfg, batch, beta, generator, eps=None, mesh=None):
+    """One update of ``state`` in place on a (B, D) batch (this rank's items
+    under a ``mesh``); an aux model's loss is ``aux_vae_loss`` (through
+    ``vae_loss``), its KLD the two terms' sum. ``eps``: the injected
+    posterior draw (B, z_dim), or an aux model's pair (eps0, eps), at the
+    global batch's shape. Returns this rank's metrics (detached;
+    ``train_vae_chunk`` reduces a chunk's last over the world)."""
+    if eps is None:
+        eps = posterior_noise(state.model, batch.shape[0] * (mesh.dp if mesh else 1),
+                              generator, batch.device)
+    eps = (tuple(local(mesh, e) for e in eps) if isinstance(eps, tuple)
+           else local(mesh, eps))
     loss, terms = vae_loss(state.model, batch, beta=beta, generator=generator,
                            eps=eps, compute_dtype=cfg.compute_dtype)
     loss = cfg.loss_scale * loss
     state.opt_model.zero_grad(set_to_none=True)
     loss.backward()
+    if mesh is not None:
+        mesh.average_grads(state.model.parameters())
     state.opt_model.step()
     state.step += 1
     update_weight_avg(state, cfg)
     recon, kld = terms["recon"].detach(), terms["kld"].detach()
-    return {"loss": loss.detach(), "recon_loss": recon, "kld_loss": kld,
-            "elbo": -(recon + kld)}
+    metrics = {"loss": loss.detach(), "recon_loss": recon, "kld_loss": kld,
+               "elbo": -(recon + kld)}
+    return metrics
 
 
 def train_vae_chunk(state, cfg, data, idx, generator, beta_fn, binarize=False,
-                    draws=None):
+                    draws=None, mesh=None):
     """K steps over (K, B) integer indices into ``data`` (N, D) on the
-    device. ``draws``: optional per-step list of {"bin": (B, D) uniforms,
-    "eps": (B, z_dim) or an aux model's pair}. Returns the last step's
-    metrics."""
+    device (a ``mesh`` rank gathers its items only). ``draws``: optional
+    per-step list of {"bin": (B, D) uniforms, "eps": (B, z_dim) or an aux
+    model's pair}. Returns the last step's metrics, reduced over the world
+    under a mesh."""
     metrics = None
     for k in range(len(idx)):
         d = draws[k] if draws else {}
         batch = gather_batches(data, torch.as_tensor(idx[k], device=data.device),
-                               binarize, generator, d.get("bin"))
+                               binarize, generator, d.get("bin"), mesh)
         metrics = vae_step(state, cfg, batch, beta_fn(state.step), generator,
-                           d.get("eps"))
-    return metrics
+                           d.get("eps"), mesh)
+    return metrics if mesh is None or metrics is None else mesh.reduce_metrics(metrics)

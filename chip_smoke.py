@@ -15,17 +15,22 @@ Phases (each failure exits non-zero):
      convolution: at the flagship shape (n = 128 x 625 rows, d 32, h 512, 5
      layers, softplus) and at one ragged small shape per activation; at the
      flagship shape it also runs the kernel twice and fails unless loss and
-     gradients are bitwise equal;
+     gradients are bitwise equal; and at the shape one rank of phase 11a
+     gives it (n = 64 x 625 = 40,000 rows, the flagship's data shard);
   3b. the same for the grad-style (second-order) kernel: at the
      implicit-conv line's shape (n = 128 x 625, d 32, h 256, 5 layers,
      softplus; mnist-concat's too), at the 25-gaussians line's (n = 512 x
      256, d 2, h 256, 3 layers, softplus: rows of 2 floats, not 16-byte
-     aligned) and at ragged small shapes, d 2 among them. Bounds for both:
+     aligned), at the shape one rank of phase 11b gives it (n = 128 x 125
+     = 16,000 rows, implicit conv's sample shard) and at ragged small
+     shapes, d 2 among them. Bounds for both:
      loss relative error <= 1e-5; every gradient, d/d(ctx_l0) included,
      ||kernel - plain|| / ||plain|| <= 1e-4 (3xTF32 products, fp32 sums in
      another order);
-  4. times the res-style kernel and its plain version at the flagship shape,
+  4. times the res-style kernel and its plain version at the flagship shape
+     and its 11a shard,
   4b. and the grad-style pair at the implicit-conv and 25-gaussians shapes
+     and the 11b shard
      (CUDA events, warm-up, median of 7, in the order plain, kernel,
      kernel, plain), and
      the chain's matrix products alone as torch.matmul calls (fp32, TF32
@@ -180,17 +185,47 @@ Phases (each failure exits non-zero):
      within 5e-2 of the CPU's plus twice the CPU's bf16-to-fp32 distance.
      It prints each line's ms/step per log interval beside its fp32 twin's
      (phases 5, 5b, 5d, 5i, 7, 7c).
+  11. runs data and sample parallelism on the one card, the ranks sharing
+     cuda:0 over gloo (a correctness phase, not a scaling measurement),
+     each rank spawned by ardae_tpu_torch/parallel/launch.py with rank 0
+     in this process and training through parallel/workers.py: 11a the
+     flagship (:35) at its published widths with --use-kernels on
+     make_mesh(2), 4 steps through train_chunk, then as a world of one
+     from the same seed: the res kernel on 40,000-row shards (2 + 2
+     launches a step a rank, counted by each rank from 0, the rows of rank
+     0's launches recorded), the replicas bit for bit equal, every step's
+     metrics within PAR_METRICS of the world of one's and, after steps 1
+     and 4, the parameter update and the optimizer state (rel-norm over a
+     module) within max(PAR_FLOOR, twice the same rel-norm between the
+     world of one with the kernel and with its plain version); every run
+     of 11a-11c, each rank's too, uses torch's deterministic algorithms,
+     and the world of one, run twice, must repeat bit for bit; 11b
+     implicit conv (:41) on sample_parallel_mesh(1, 5), the grad kernel on
+     16,000-row shards, as 11a; 11c the conv baseline (:22) through
+     vae_step on make_mesh(2), no launch, as 11a within PAR_FLOOR (its
+     world of one repeats, so no control);
+     11d graft_entry.dryrun_multichip(4) on cuda:0 four times (dp 4, then
+     dp 2 x sp 2); 11e the flagship line through cli.ivae_ardae with
+     --use-kernels --profile-dir at phase 5's depth: the Chrome trace of
+     steps 3-4 parses and names fused_dsm_fwd / fused_dsm_bwd and their
+     kernels (loss_partial_kernel, dloss_dr_kernel), 2 + 2 launches a step.
+     Each prints its worst differences and ms/step per rank beside the
+     card line.
 Then it prints the kernels' JSON line (each kernel's launches over the
-main path's runs, 5-5i but 5c, 8a-8c, 9b and 10f, and by line under "launched_by"; and at its
+main path's runs, 5-5i but 5c, 8a-8c, 9b, 10f, 11a, 11b and 11e, and by
+line under "launched_by"; and at its
 first line's shape its error, times, FLOP,
-launches per step and bound, the grad kernel's 25-gaussians shape beside
-them under "at_25-gaussians"; the bound is the larger of
+launches per step and bound, the kernel's other shapes beside them under
+"at_<line>": the grad kernel's "at_25-gaussians" and each kernel's phase
+11 shard, "at_flagship-dp2-shard" and "at_implicit-conv-sp5-shard"; the
+bound is the larger of
 3 x FLOP over the 495 TFLOP/s TF32 tensor-core peak, the kernel's products
 being 3xTF32, and its inputs' and outputs' bytes over 3.35 TB/s; beside it
 the fp32 CUDA-core bound, FLOP over 67 TFLOP/s; H100 SXM peaks at 700 W),
 the card line, and as its last line {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -293,6 +328,21 @@ AUX_CLIP_ARGS = with_flags(AUX_LINES["auxresconvct"], model="auxresconvct-clip")
 SMOKE_ARGS = ["--log-interval", "2", "--eval-iws-interval", "0",
               "--ckpt-interval", "0", "--skip-final-test-eval", "--no-resume"]
 STEPS, HEAD_STEPS = 6, 4
+# phase 11: steps of each mesh run. A mesh run sums in another order than
+# the world of one (a rank's row blocks, then the world's average), and
+# four steps amplify that: a first RMSprop or Adam step moves ~lr * sign(g)
+# wherever g sits at the rounding level, and std-scale 10000 feeds that
+# back (the cdae update of implicit conv's plain version is 0.145 off the
+# kernel's by step 4). So after step 1 and after the last, each rel-norm
+# (a module's parameter update, its optimizer state) may be PAR_FLOOR or
+# twice the same rel-norm between two valid runs of the world of one, the
+# kernel against its plain version, whichever is larger; every step's
+# metrics within PAR_METRICS relative. The runs use deterministic
+# algorithms: with cuDNN's and torch's default ones the card's world of one
+# drifts from its own repeat as far as the mesh does (2.5e-3 of the
+# flagship's model update by step 4), and the comparison would be a draw
+# that differs from call to call
+PAR_STEPS, PAR_FLOOR, PAR_METRICS = 4, 1e-3, 1e-3
 # phase 5c: the other four resconv fc heads on the flagship line's flags
 HEADS = {"resconv": "mlp", "resconvct-res2": "res-mlp",
          "resconv-res3": "res-wn-mlp-lin", "resconvct-res4": "res-mlp-lin"}
@@ -1853,6 +1903,350 @@ def drive_bf16(torch, dev, res, grad, kernels, card, by_line):
               f"twin {twin} {MS_STEP[twin]} | {card}", flush=True)
 
 
+def line_spec(line_args):
+    """A parallel/workers.py joint-step spec of an implicit line's flags:
+    its models (seeds 0 and 1), optimizers, step config and beta, on
+    synthetic dbMNIST-shaped data (1,024 gray rows from seed 11, binarized
+    on the device) and random batches from seed 12."""
+    import numpy as np
+
+    from ardae_tpu_torch.data.mnist import _synthetic_mnist
+    from ardae_tpu_torch.models.registry import context_dim_for
+
+    f = lambda name: flag(line_args, name)
+    name, z, h = f("--model"), int(f("--model-z-dim")), int(f("--model-h-dim"))
+    ctx_dim = context_dim_for(f("--cdae-ctx-type"), model_name=name, nchannels=1,
+                              nheight=28, z_dim=z, h_dim=h)
+    bs, updates = int(f("--train-batch-size")), int(f("--num-cdae-updates"))
+    rng = np.random.default_rng(12)
+    return {
+        "model": (name, dict(nchannels=1, nheight=28, z_dim=z, h_dim=h,
+                             n_dim=int(f("--model-n-dim")),
+                             n_layers=int(f("--model-n-layers")),
+                             nonlin=f("--model-nonlin"), seed=0)),
+        "cdae": (f("--cdae"), dict(input_dim=z, context_dim=ctx_dim,
+                                   h_dim=int(f("--cdae-h-dim")),
+                                   n_layers=int(f("--cdae-n-layers")),
+                                   nonlin=f("--cdae-nonlin"), seed=1)),
+        "opt_model": (f("--m-optimizer"), float(f("--m-lr")),
+                      dict(beta1=float(f("--m-beta1")),
+                           momentum=float(f("--d-momentum")))),
+        "opt_cdae": (f("--d-optimizer"), float(f("--d-lr")),
+                     dict(beta1=float(f("--d-beta1")),
+                          momentum=float(f("--d-momentum")))),
+        "cfg": dict(std_scale=float(f("--std-scale")), delta=float(f("--delta")),
+                    num_cdae_updates=updates,
+                    train_nz_cdae=int(f("--train-nz-cdae")),
+                    train_nstd_cdae=int(f("--train-nstd-cdae")),
+                    train_nz_model=int(f("--train-nz-model")),
+                    ctx_type=f("--cdae-ctx-type"), use_kernels=True),
+        "beta": float(f("--beta-init")), "seed": 0, "binarize": True,
+        "data": _synthetic_mnist(1024, seed=11)[0],
+        "cdae_idx": rng.integers(0, 1024, (PAR_STEPS, updates, bs)),
+        "model_idx": rng.integers(0, 1024, (PAR_STEPS, bs)),
+        "snapshots": (0, 1, PAR_STEPS)}
+
+
+class RowRecorder:
+    """Records the rows of each forward launch of a kernel's autograd
+    Function in this process (rank 0 of a mesh)."""
+
+    def __init__(self, fn_cls):
+        self.fn_cls, self.rows = fn_cls, []
+
+    def __enter__(self):
+        self.real = self.fn_cls.forward
+        real, rows = self.real, self.rows
+
+        def forward(ctx, act, l0, xbar, *rest):
+            rows.append(xbar.shape[0])
+            return real(ctx, act, l0, xbar, *rest)
+
+        self.fn_cls.forward = staticmethod(forward)
+        return self
+
+    def __exit__(self, *exc):
+        self.fn_cls.forward = staticmethod(self.real)
+
+
+def rel_norm_tree(a, b):
+    """||a - b|| / ||b|| over every floating tensor of two nested state
+    dicts, taken as one vector."""
+    import torch
+
+    num = den = 0.0
+
+    def walk(x, y):
+        nonlocal num, den
+        if isinstance(x, torch.Tensor):
+            if x.is_floating_point():
+                num += float(((x.double() - y.double()) ** 2).sum())
+                den += float((y.double() ** 2).sum())
+        elif isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k])
+        elif isinstance(x, (list, tuple)):
+            for u, v in zip(x, y):
+                walk(u, v)
+
+    walk(a, b)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def update_rel_norm(after, before, want):
+    """||(after - before) - (want - before)|| / ||want - before|| over a
+    module's state dict: the parameter update of a world of N against a
+    world of one's."""
+    import torch
+
+    num = den = 0.0
+    for k, w in want.items():
+        d_n = after[k].double() - before[k].double()
+        d_1 = w.double() - before[k].double()
+        num += float(((d_n - d_1) ** 2).sum())
+        den += float((d_1 ** 2).sum())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def differences(run, one):
+    """Every step's worst metric (rel) and, after step 1 and the last, each
+    module's parameter update from step 0 and its optimizer state
+    (rel-norm) of ``run`` against the world of one ``one``."""
+    out = {"metrics": max(abs(m[k] - v) / max(abs(v), 1e-12)
+                          for m, m1 in zip(run["metrics"], one["metrics"])
+                          for k, v in m1.items())}
+    for step in (1, PAR_STEPS):
+        snap, snap1 = run["snapshots"][step], one["snapshots"][step]
+        for key in [k for k in ("model", "cdae") if k in snap1]:
+            out[f"{key} update @{step}"] = update_rel_norm(
+                snap[key], one["snapshots"][0][key], snap1[key])
+            out[f"opt_{key} @{step}"] = rel_norm_tree(snap[f"opt_{key}"],
+                                                      snap1[f"opt_{key}"])
+    return out
+
+
+def compare_worlds(results, one, control, what):
+    """A world's rank results against the world of one: replicas bit for
+    bit, finite metrics, and ``differences`` within their bounds against
+    those of ``control``, another valid run of the world of one. Returns
+    (the world's differences, the control's)."""
+    import torch
+
+    for r in results[1:]:
+        for step, snap in r["snapshots"].items():
+            for key, sd in snap.items():
+                if isinstance(sd, dict) and key in ("model", "cdae"):
+                    for k, v in sd.items():
+                        if not torch.equal(v, results[0]["snapshots"][step][key][k]):
+                            fail(f"{what}: rank replicas differ at step {step} {key} {k}")
+    if not all(math.isfinite(v) for m in results[0]["metrics"] for v in m.values()):
+        fail(f"{what}: metrics {results[0]['metrics']} not finite")
+    worst, ctl = differences(results[0], one), differences(control, one)
+    if worst["metrics"] > PAR_METRICS:
+        fail(f"{what}: a metric {worst['metrics']:.3e} off the world of one's")
+    for name, v in worst.items():
+        if name != "metrics" and v > max(PAR_FLOOR, 2 * ctl[name]):
+            fail(f"{what}: {name} {v:.3e} off the world of one's, over "
+                 f"max({PAR_FLOOR}, 2 x {ctl[name]:.3e})")
+    return worst, ctl
+
+
+def show(diffs):
+    return {n: f"{v:.3e}" for n, v in diffs.items()}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms within (cuBLAS with its Hopper
+    workspace, ":4096:8", which the flag asks to be named): phase 11's runs
+    then repeat bit for bit, in this call and the next."""
+    import torch
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def deterministic_worker(device, worker, spec):
+    """A rank worker of parallel/workers.py under ``deterministic``."""
+    with deterministic():
+        return worker(device, spec)
+
+
+def world_of_one(worker, device, spec, what):
+    """``worker``'s world of one, deterministic, run twice: the two runs must
+    agree bit for bit, or the comparisons that take it for their reference
+    would vary from call to call."""
+    with deterministic():
+        one, again = worker(device, spec), worker(device, spec)
+    if again["metrics"] != one["metrics"] or rel_norm_tree(
+            again["snapshots"], one["snapshots"]) != 0:
+        fail(f"{what}: the world of one does not repeat bit for bit")
+    return one
+
+
+def drive_mesh_line(torch, kernels, k, line_args, what, dp, sp, card, devices=None,
+                    clock=None):
+    """11a / 11b: PAR_STEPS joint steps of an implicit line at its published
+    widths with --use-kernels through train_chunk (parallel/workers.py) on a
+    (dp, sp) mesh of ranks on ``devices`` (default: all sharing cuda:0, over
+    gloo), counters at 0 just before and read just after (rank 0 here; the
+    others report theirs), then as a world of one and as the plain
+    version's world of one on devices[0]. ``clock``: an optional context
+    manager around the mesh run (scripts/torch_mesh_cards.py times the
+    collectives in it). Returns the run's numbers, its launches summed over
+    the ranks under "launches"."""
+    from contextlib import nullcontext
+
+    from ardae_tpu_torch.parallel.launch import backend_for, launch
+    from ardae_tpu_torch.parallel.workers import joint_steps
+
+    spec = line_spec(line_args)
+    world = dp * sp
+    devices = devices or ["cuda:0"] * world
+    t0 = time.perf_counter()
+    reset_counts(kernels)
+    with RowRecorder(k["fn"]) as rec, clock or nullcontext():
+        results = launch(deterministic_worker, devices, joint_steps,
+                         dict(spec, dp=dp, sp=sp))
+    own = read_counts(kernels)
+    wall = time.perf_counter() - t0
+    if own != results[0]["launches"]:
+        fail(f"{what}: rank 0 counted {own}, its worker {results[0]['launches']}")
+    # CPU ranks (a rehearsal of scripts/torch_mesh_cards.py) run the plain version
+    on_card = torch.device(devices[0]).type == "cuda"
+    per_rank = k["updates"] * PAR_STEPS if on_card else 0
+    for r, res in enumerate(results):
+        want = {n: (per_rank if n in k["fn"].launches else 0) for n in own}
+        if res["launches"] != want:
+            fail(f"{what}: rank {r} launched {res['launches']}, expected {want}")
+    cfg = spec["cfg"]
+    rows = spec["cdae_idx"].shape[2] // dp * cfg["train_nz_cdae"] // sp
+    if rec.rows != [rows] * per_rank:
+        fail(f"{what}: rank 0's {k['kind']} launches took rows {rec.rows}, "
+             f"expected {per_rank} of {rows}")
+    one = world_of_one(joint_steps, torch.device(devices[0]), spec, what)
+    with deterministic():
+        plain = joint_steps(torch.device(devices[0]),
+                            dict(spec, cfg=dict(spec["cfg"], use_kernels=False)))
+    worst, ctl = compare_worlds(results, one, plain, what)
+    ms = [[round(v, 2) for v in r["ms"]] for r in results]
+    print(f"{what}: {world} ranks (dp={dp}, sp={sp}) on "
+          f"{', '.join(sorted(set(devices)))} over {backend_for(devices)}, "
+          f"{PAR_STEPS} steps through train_chunk in {wall:.1f} s (spawn "
+          f"included); {k['kind']} kernel on {rows}-row shards, {per_rank} fwd + "
+          f"{per_rank} bwd a rank; against the world of one {show(worst)}, the "
+          f"plain version's world of one {show(ctl)}; ms/step per rank {ms}, "
+          f"world of one {[round(v, 2) for v in one['ms']]} | {card}", flush=True)
+    return {"launches": {n: sum(r["launches"][n] for r in results) for n in own},
+            "ranks": world, "dp": dp, "sp": sp, "rows": rows,
+            "launches_per_rank": results[0]["launches"], "worst": worst,
+            "control": ctl, "ms_per_rank": ms, "ms_world_of_one": one["ms"]}
+
+
+def drive_mesh_baseline(torch, kernels, card):
+    """11c: the conv baseline (:22) through vae_step on make_mesh(2) against
+    a world of one, no kernel launch allowed."""
+    import numpy as np
+
+    from ardae_tpu_torch.data.mnist import _synthetic_mnist
+    from ardae_tpu_torch.parallel.launch import launch
+    from ardae_tpu_torch.parallel.workers import vae_steps
+
+    line = BASELINE_LINES["conv"]
+    kw = {k: v for k, v in BASELINE_MODELS["conv"].items() if k != "name"}
+    rng = np.random.default_rng(13)
+    spec = {"model": ("conv", dict(kw, seed=0)),
+            "opt_model": ("adam", float(flag(line, "--lr")),
+                          dict(beta1=float(flag(line, "--beta1")))),
+            "cfg": dict(loss_scale=1.0 / 784), "beta": 1.0, "seed": 0,
+            "binarize": True, "data": _synthetic_mnist(1024, seed=11)[0],
+            "model_idx": rng.integers(0, 1024, (PAR_STEPS, 128)),
+            "snapshots": (0, 1, PAR_STEPS)}
+    reset_counts(kernels)
+    results = launch(deterministic_worker, ["cuda:0"] * 2, vae_steps, dict(spec, dp=2))
+    if any(read_counts(kernels).values()) or any(
+            any(r["launches"].values()) for r in results):
+        fail("phase 11c: a kernel launched in the baseline step")
+    one = world_of_one(vae_steps, torch.device("cuda:0"), spec, "phase 11c")
+    worst, ctl = compare_worlds(results, one, one, "phase 11c")
+    print(f"phase 11c conv baseline (:22): 2 ranks share cuda:0 over gloo, "
+          f"{PAR_STEPS} steps through vae_step; against the world of one "
+          f"{show(worst)} (the world of one repeats bit for bit); ms/step per rank "
+          f"{[[round(v, 2) for v in r['ms']] for r in results]}, world of one "
+          f"{[round(v, 2) for v in one['ms']]} | {card}", flush=True)
+
+
+def drive_profiled(torch, res, kernels, card):
+    """11e: the flagship line through cli.ivae_ardae with --use-kernels and
+    --profile-dir at phase 5's depth: the trace of steps 3-4 parses and
+    names both res entry points and their kernels on the card."""
+    from ardae_tpu_torch.cli import ivae_ardae
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = os.path.join(tmp, "prof")
+        argv = FLAGSHIP_ARGS + SMOKE_ARGS + [
+            "--use-kernels", "--max-iters", str(STEPS), "--profile-dir", prof,
+            "--cache", os.path.join(tmp, "exp"), "--data-root", os.path.join(tmp, "d")]
+        reset_counts(kernels)
+        _, path = ivae_ardae.run(argv)
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+        with open(os.path.join(path, "log.txt")) as f:
+            log = f.read()
+        traces = sorted(os.listdir(prof))
+        if traces != ["iter3-4.trace.json"] or f"profiler trace written to {prof}" not in log:
+            fail(f"phase 11e: traces {traces}")
+        size = os.path.getsize(os.path.join(prof, traces[0]))
+        with open(os.path.join(prof, traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+    want = {n: (STEPS * res["updates"] if n in res["fn"].launches else 0)
+            for n in launches}
+    if launches != want:
+        fail(f"phase 11e: kernel launches {launches}, expected {want}")
+    seen = {}
+    for e in events:
+        seen.setdefault(e.get("cat"), set()).add(e.get("name"))
+    kernels_seen = " ".join(seen.get("kernel", ()))
+    marks = seen.get("user_annotation", set()) | seen.get("gpu_user_annotation", set())
+    for name, kernel in (("fused_dsm_fwd", "loss_partial_kernel"),
+                         ("fused_dsm_bwd", "dloss_dr_kernel")):
+        if name not in marks or kernel not in kernels_seen:
+            fail(f"phase 11e: the trace lacks {name} or its {kernel}")
+    print(f"phase 11e --profile-dir: {traces[0]} ({size / 2**20:.1f} MiB, "
+          f"{len(events)} events, {len(seen.get('kernel', ()))} kernel names) names "
+          f"fused_dsm_fwd / fused_dsm_bwd ({sorted(c for c in seen if c and 'annotation' in c)}) "
+          f"and their kernels on the card; launches {launches} | {card}", flush=True)
+    return launches
+
+
+def drive_parallel(torch, res, grad, kernels, card, by_line):
+    """Phase 11: data and sample parallelism on the one card (see the
+    module docstring); a correctness phase, the ranks sharing cuda:0."""
+    from ardae_tpu_torch import graft_entry
+
+    t0 = time.perf_counter()
+    by_line["flagship-dp2"] = drive_mesh_line(
+        torch, kernels, res, FLAGSHIP_ARGS, "phase 11a flagship (:35)", 2, 1,
+        card)["launches"]
+    torch.cuda.empty_cache()
+    by_line["implicit-conv-sp5"] = drive_mesh_line(
+        torch, kernels, grad, IMPLICIT_CONV_ARGS, "phase 11b implicit conv (:41)",
+        1, 5, card)["launches"]
+    torch.cuda.empty_cache()
+    drive_mesh_baseline(torch, kernels, card)
+    t = time.perf_counter()
+    graft_entry.dryrun_multichip(4, devices=["cuda:0"] * 4)
+    print(f"phase 11d dryrun_multichip(4) on 4 ranks sharing cuda:0 in "
+          f"{time.perf_counter() - t:.1f} s | {card}", flush=True)
+    by_line["flagship-profiled"] = drive_profiled(torch, res, kernels, card)
+    print(f"phase 11 passed in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1880,14 +2274,19 @@ def main():
            "updates": 2,
            "ragged": [(3, 37, 5, 24, 2, a, 1) for a in acts]
            + [(4, 300, 32, 136, 3, "tanh", 2)],
-           "lines": {"flagship": (128, 625, 32, 512, 5, "softplus", 3)}}
+           "lines": {"flagship": (128, 625, 32, 512, 5, "softplus", 3),
+                     # one rank's rows in phase 11a (dp 2)
+                     "flagship-dp2-shard": (64, 625, 32, 512, 5, "softplus", 5)}}
     grad = {"cdae": "mlp-grad", "kind": "grad", "fn": fg.FusedDSMGradFunction,
             "plain": fg.dsm_grad_chain_reference, "prepare": fd.prepare_inputs,
             "updates": 1,
             "ragged": [(3, 37, d, 24, 2, a, 1) for d in (5, 2) for a in acts]
             + [(4, 50, 32, 136, 3, "tanh", 2)],
             "lines": {"implicit-conv": (128, 625, 32, 256, 5, "softplus", 3),
-                      "25-gaussians": (512, 256, 2, 256, 3, "softplus", 4)}}
+                      "25-gaussians": (512, 256, 2, 256, 3, "softplus", 4),
+                      # one rank's rows in phase 11b (sp 5)
+                      "implicit-conv-sp5-shard": (128, 125, 32, 256, 5,
+                                                  "softplus", 6)}}
     kernels = (res, grad)
 
     t0 = time.perf_counter()
@@ -1956,6 +2355,7 @@ def main():
     t10 = time.perf_counter()
     drive_bf16(torch, dev, res, grad, kernels, card, by_line)
     print(f"phase 10 passed in {time.perf_counter() - t10:.1f} s", flush=True)
+    drive_parallel(torch, res, grad, kernels, card, by_line)
     launches = {n: sum(c[n] for c in by_line.values()) for k in kernels
                 for n in k["fn"].launches}
     launched_by = {n: {line: c[n] for line, c in by_line.items() if c[n]}

@@ -6,8 +6,8 @@ sbMNIST, and of the four other resconv fc heads with --use-kernels; the
 whole pipeline
 (val IWS eval, best and periodic checkpoints, the test eval from the best
 checkpoint, resume, final mode) on val and test splits cut to 64 items; and
-the flags and configs the port does not cover, which must raise, among them
---use-kernels with a bf16 phase A. The bf16 runs themselves are
+the configs the port refuses, which must raise, among them --use-kernels
+with a bf16 phase A. The bf16 runs themselves are
 tests/test_torch_bf16_cli.py."""
 
 import math
@@ -149,10 +149,9 @@ def test_resconv_heads_two_steps_on_cpu(tmp_path, model, head):
 
 
 @pytest.mark.parametrize("extra,what", [
-    # bf16 trains now; the fused kernels refuse a bf16 phase A
+    # bf16 trains now; the fused kernels refuse a bf16 phase A. The mesh
+    # flags and --profile-dir run (tests/test_torch_cli_parallel.py)
     (["--cdae-compute-dtype", "bfloat16", "--use-kernels"], "bf16"),
-    (["--dp-devices", "2"], "dp-devices"),
-    (["--profile-dir", "prof"], "profile"),
 ])
 def test_unsupported_flags_raise(tmp_path, extra, what):
     with pytest.raises(NotImplementedError, match=what):

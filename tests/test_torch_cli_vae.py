@@ -7,8 +7,8 @@ toy final dump;
 experiment names equal to the JAX driver's; the whole pipeline (val IWAE
 eval, best and periodic checkpoints, the test eval from the best
 checkpoint, resume, final mode) on val and test splits cut to 64 items; and
-the flags the port does not cover, which must raise. The bf16 runs are
-tests/test_torch_bf16_cli.py."""
+--dp-devices on a machine with fewer cards, which must refuse. The bf16
+runs are tests/test_torch_bf16_cli.py."""
 
 import math
 import os
@@ -165,14 +165,17 @@ def test_pipeline_eval_checkpoints_resume_and_final_mode(tmp_path, small_splits)
 
 
 @pytest.mark.parametrize("extra,what", [
-    # the two bf16 cases left with the refusal they tested (bf16 trains:
-    # test_torch_bf16_cli.py); this one keeps its id
-    pytest.param(["--dp-devices", "2"], "dp-devices.*slice 7",
-                 id="extra1-dp-devices.*slice 7"),
+    # --dp-devices trains (tests/test_torch_cli_parallel.py); on a machine
+    # with fewer cards it refuses, as the JAX driver does
+    pytest.param(["--dp-devices", "2"],
+                 "--dp-devices 2 but only 1 devices are available",
+                 id="dp-devices-fewer-cards"),
 ])
-def test_unsupported_flags_raise(tmp_path, extra, what):
-    with pytest.raises(NotImplementedError, match=what):
-        vae.run(_args(tmp_path, *extra))
+def test_unsupported_flags_raise(tmp_path, monkeypatch, extra, what):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    args = [a for a in _args(tmp_path, *extra) if a != "--no-cuda"]
+    with pytest.raises(SystemExit, match=re.escape(what)):
+        vae.run(args)
 
 
 def test_no_gpu_without_no_cuda_raises(tmp_path):

@@ -91,3 +91,14 @@ def test_every_aux_name_builds(build, name, family):
     if build is build_ivae_model and "resconv" in name:
         assert model.z0_min_std == (1.0 if name.endswith("-clip") else 0.0)
         assert model.aux_reparam.clip == (None if name.endswith("-clip") else "spm4")
+
+
+def test_cdae_mlp_raises_as_the_jax_registry():
+    """No registry builds the legacy --cdae mlp (JAX's raises "unknown
+    cdae: mlp"): the refusal says so, and points at models/cdae/legacy.py,
+    which holds the legacy DAEs."""
+    from ardae_tpu_torch.models.registry import build_cdae
+
+    with pytest.raises(NotImplementedError,
+                       match="nor any registry.*unknown cdae: mlp.*legacy.py"):
+        build_cdae("mlp", input_dim=2, context_dim=2, device="cpu")
