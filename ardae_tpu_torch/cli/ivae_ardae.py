@@ -36,6 +36,10 @@ in this process. ``--profile-dir DIR`` writes a ``torch.profiler`` Chrome
 trace of the first chunk after iteration 0 into DIR (rank 0's). Jacobian
 clamping (``--lmbd-*``) and ``--cdae mlp``, which the JAX driver refuses
 too, raise NotImplementedError; no flag is ignored in silence.
+``--dataset`` also takes ``mnist32`` (gray 32 x 32, with ``--nheight
+32``), which the JAX package's get_dataset builds and its parser does not
+list; at 32 x 32 only the MLP models (mnist-concat, auxmnist) run, as in
+JAX.
 
 Device: ``--no-cuda`` selects the CPU, as in the reference (a mesh's ranks
 are then CPU processes); otherwise the run needs a CUDA device a rank and
@@ -54,7 +58,7 @@ def build_parser():
     p = argparse.ArgumentParser()
     p.add_argument("--dataset", default="swissroll",
                    choices=["swissroll", "25gaussians", "sbmnist", "dbmnist",
-                            "dbmnist-val5k"])
+                            "dbmnist-val5k", "mnist32"])
     p.add_argument("--model", default="mlp-concat",
                    choices=["mlp-concat", "mnist-concat", "mnist-conv",
                             "resconv", "resconvct", "resconv-res", "resconvct-res",

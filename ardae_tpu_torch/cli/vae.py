@@ -26,7 +26,10 @@ JAX driver's mixed precision (models/vae/api.py ``vae_loss``); evaluation,
 averaging and checkpoints stay fp32. ``--dp-devices N`` trains on a
 data-parallel mesh of N ranks (parallel/, train/vae_step.py; the JAX
 driver's checks and log line), rank 0 in this process; no flag is ignored
-in silence.
+in silence. ``--dataset`` also takes ``mnist32`` (gray 32 x 32, with
+``--nheight 32``), which the JAX package's get_dataset builds and its
+parser does not list; at 32 x 32 only the MLP models (``mnist``,
+``auxmnist``) run, as in JAX.
 
 Device: ``--no-cuda`` selects the CPU, as in the reference (a mesh's ranks
 are then CPU processes); otherwise the run needs a CUDA device a rank and
@@ -44,7 +47,7 @@ def build_parser():
     p = argparse.ArgumentParser()
     p.add_argument("--dataset", default="swissroll",
                    choices=["swissroll", "25gaussians", "sbmnist", "dbmnist",
-                            "dbmnist-val5k"])
+                            "dbmnist-val5k", "mnist32"])
     p.add_argument("--model", default="mnist",
                    choices=["toy", "toy-maf", "mnist", "conv", "resconv",
                             "resconvct", "auxtoy", "auxmnist", "auxconv",

@@ -14,7 +14,9 @@ or without the top ``"params"`` level) into the port module's
     and bilinear layers (``direction``, ``cscale``, ``path1``, ``path2``)
     (in, out) -> (out, in); their vectors (``scale``, ``cscalebias``,
     ``bias``) cross as they are;
-  * conv kernels and directions HWIO -> OIHW; transposed-conv kernels HWIO
+  * the 3-D directions of WNBilinear, (out, in1, in2), cross as they
+    are;
+  * conv kernels and directions HWIO -> OIHW (CWNconv2d's too); transposed-conv kernels HWIO
     -> (in, out, k, k), torch's ConvTranspose2d layout, with no spatial flip
     (the JAX layer flips at use, nn/conv.py:108-117, and torch's transposed
     convolution is that same flipped correlation);
@@ -91,6 +93,8 @@ def _transposed_convs(module):
 def _to_torch_kernel(key, a, transposed):
     if a.ndim == 2:
         return a.T
+    if a.ndim == 3:
+        return a                               # WNBilinear (out, in1, in2)
     if key.startswith(transposed):
         return np.transpose(a, (2, 3, 0, 1))   # HWIO -> (in, out, k, k)
     return np.transpose(a, (3, 2, 0, 1))       # HWIO -> OIHW
@@ -99,6 +103,8 @@ def _to_torch_kernel(key, a, transposed):
 def _to_flax_kernel(key, a, transposed):
     if a.ndim == 2:
         return a.T
+    if a.ndim == 3:
+        return a
     if key.startswith(transposed):
         return np.transpose(a, (2, 3, 0, 1))   # (in, out, k, k) -> HWIO
     return np.transpose(a, (2, 3, 1, 0))       # OIHW -> HWIO

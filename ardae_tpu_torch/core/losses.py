@@ -39,9 +39,30 @@ def loss_recon_bernoulli_with_logit(logit, x, reduce: str = "per_item"):
     return _reduce(neg_ll, reduce)
 
 
+def loss_recon_bernoulli(p, x, eps: float = 1e-7):
+    """Summed BCE given probabilities, clipped to [eps, 1 - eps] (reference
+    utils/vae.py:32-34: F.binary_cross_entropy, size_average=False)."""
+    p = torch.clamp(p, eps, 1.0 - eps)
+    return -torch.sum(x * torch.log(p) + (1.0 - x) * torch.log(1.0 - p))
+
+
 def loss_recon_gaussian(mu, logvar, x, const=None, reduce: str = "per_item"):
     """Gaussian negative log-likelihood (reference utils/vae.py:36-52)."""
     elem = logvar + (x - mu) ** 2 / torch.exp(logvar) + _LOG_2PI
+    if const is not None:
+        elem = elem + const
+    return 0.5 * _reduce(elem, reduce)
+
+
+def loss_recon_gaussian_w_fixed_var(mu, x, std: float = 1.0, const=None,
+                                    reduce: str = "per_item",
+                                    add_logvar: bool = True):
+    """Gaussian negative log-likelihood with a fixed scalar std (reference
+    utils/vae.py:54-76)."""
+    var = std ** 2
+    elem = (x - mu) ** 2 / var + _LOG_2PI
+    if add_logvar:
+        elem = elem + math.log(var)
     if const is not None:
         elem = elem + const
     return 0.5 * _reduce(elem, reduce)

@@ -1,15 +1,15 @@
 """MNIST splits (JAX twin: ardae_tpu/data/mnist.py): dynamically binarized
-MNIST (mnist, cmnist, dbmnist, dbmnist-val5k) and Larochelle's statically
-binarized MNIST (sbmnist).
+MNIST (mnist, cmnist, dbmnist, dbmnist-val5k), the gray 32 x 32 mnist32,
+Larochelle's statically binarized MNIST (sbmnist), and 3-channel
+StackedMNIST items (``make_stacked_mnist``).
 
 Real files are used when present: idx files under ``{root}/MNIST/raw/``,
 amat files under ``{root}/bmnist/``; otherwise a deterministic
 class-structured synthetic surrogate stands in and ``info["synthetic"]``
 says so. The train/val split permutation is seeded and cached under
 ``{root}/MNIST/``. The arrays are byte-identical to the JAX package's (the
-tests check it). Splits are float32 numpy [N, 784]; the driver moves them
-to the device once. mnist32 and StackedMNIST wait (ROADMAP queue 1,
-slice 6).
+tests check it). Splits are float32 numpy [N, 784] ([N, 1024] for
+mnist32); the driver moves them to the device once.
 """
 
 import os
@@ -164,6 +164,38 @@ def _load_sbmnist_arrays(root):
             binary[_SB_TRAIN + _SB_VAL:], True)
 
 
+def _resize_bilinear(x, out_size, in_size=28):
+    """[N, in^2] -> [N, out^2] half-pixel-centre bilinear: the reference's
+    mnist32 path (torchvision Resize, bilinear with align_corners=False,
+    datasets/mnist.py:69-72). The same numpy steps, and dtypes, as the JAX
+    twin's: the source rows ``yi`` float64, the weights ``wy`` float32."""
+    n = x.shape[0]
+    imgs = x.reshape(n, in_size, in_size)
+    scale = in_size / out_size
+    yi = np.clip((np.arange(out_size) + 0.5) * scale - 0.5, 0, in_size - 1)
+    y0 = np.clip(yi.astype(np.int64), 0, in_size - 2)
+    wy = (yi - y0).astype(np.float32)
+    rows = (imgs[:, y0, :] * (1 - wy)[None, :, None]
+            + imgs[:, y0 + 1, :] * wy[None, :, None])
+    cols = (rows[:, :, y0] * (1 - wy)[None, None, :]
+            + rows[:, :, y0 + 1] * wy[None, None, :])
+    return cols.reshape(n, out_size * out_size).astype(np.float32)
+
+
+def make_stacked_mnist(x, y, n, seed=0):
+    """n 3-channel StackedMNIST items (reference StackedMNIST,
+    datasets/mnist.py:16-33): channels 1 and 2 random items of x, channel
+    3 item index mod len(x); label 100*y1 + 10*y2 + y3."""
+    rng = np.random.default_rng(seed)
+    m = x.shape[0]
+    i1 = rng.integers(0, m, n)
+    i2 = rng.integers(0, m, n)
+    i3 = np.arange(n) % m
+    imgs = np.concatenate([x[i1], x[i2], x[i3]], axis=1)
+    labels = 100 * y[i1] + 10 * y[i2] + y[i3]
+    return imgs.astype(np.float32), labels.astype(np.int64)
+
+
 def _val_split_indices(root, dataset, n, val_size):
     """Cached, seeded split permutation (reference datasets/mnist.py:60-67);
     the same file and content as the JAX package's."""
@@ -179,15 +211,23 @@ def _val_split_indices(root, dataset, n, val_size):
     return indices
 
 
+MNIST_NAMES = ("mnist", "cmnist", "dbmnist", "dbmnist-val5k", "mnist32")
+
+
 def get_mnist(dataset, root="data", final_mode=False):
-    """mnist / cmnist / dbmnist / dbmnist-val5k splits
-    (reference get_mnist, datasets/mnist.py:49-92)."""
-    if dataset not in ("mnist", "cmnist", "dbmnist", "dbmnist-val5k"):
-        raise NotImplementedError(
-            f"dataset {dataset!r} is not ported yet: ROADMAP queue 1, slice 6")
+    """mnist / cmnist / dbmnist / dbmnist-val5k / mnist32 splits (reference
+    get_mnist, datasets/mnist.py:49-92). mnist32 resizes the whole train
+    and test arrays to 32 x 32 before the split; its gray values are not
+    binarized."""
+    if dataset not in MNIST_NAMES:
+        raise NotImplementedError(f"dataset: {dataset}")
     binary = dataset in ("dbmnist", "dbmnist-val5k")
+    image_size = 32 if dataset == "mnist32" else 28
     val_size = 5_000 if dataset == "dbmnist-val5k" else 10_000
     tr_x, tr_y, te_x, te_y, synthetic, labels_fallback = _load_mnist_arrays(root)
+    if image_size != 28:
+        tr_x = _resize_bilinear(tr_x, image_size)
+        te_x = _resize_bilinear(te_x, image_size)
     if final_mode:
         train_x, train_y, val_x, val_y = tr_x, tr_y, None, None
     else:
@@ -205,7 +245,7 @@ def get_mnist(dataset, root="data", final_mode=False):
             "synthetic": synthetic,
             "labels_fallback": labels_fallback,
             "nclasses": 10,
-            "image_size": 28,
+            "image_size": image_size,
             "labels": {"train": train_y, "val": val_y, "test": te_y},
         },
     }
@@ -229,3 +269,13 @@ def get_sbmnist(root="data", final_mode=False):
             "image_size": 28,
         },
     }
+
+
+def get_image_dataset(dataset, root="data", final_mode=False):
+    """Name dispatch over the image datasets (reference get_image_dataset,
+    datasets/mnist.py:125-145)."""
+    if dataset in MNIST_NAMES:
+        return get_mnist(dataset, root=root, final_mode=final_mode)
+    if dataset == "sbmnist":
+        return get_sbmnist(root=root, final_mode=final_mode)
+    raise NotImplementedError(f"dataset: {dataset}")

@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 
 from ardae_tpu_torch.core.precision import cast_input, cast_module
+from ardae_tpu_torch.core.rng import sample_laplace
 from ardae_tpu_torch.nn.activations import get_nonlinear_func
 from ardae_tpu_torch.nn.linear import Linear
 from ardae_tpu_torch.nn.mlp import MLP
@@ -133,34 +134,56 @@ def cdae_score(module, latent, context, std):
     return score.reshape(bsz, ssz, zdim)
 
 
-def dsm_noise(shape, generator=None, eps=None, device=None):
-    """The DSM's Gaussian noise: the injected ``eps`` or a fresh draw."""
+NOISE_TYPES = ("gaussian", "laplace", "uniform")
+
+
+def dsm_noise(shape, generator=None, eps=None, device=None, noise_type="gaussian"):
+    """The DSM's noise: the injected ``eps``, or a fresh draw from
+    ``generator`` of ``noise_type``: N(0, 1), Laplace(0, 1)
+    (``core/rng.sample_laplace``) or U(0, 1)."""
+    if noise_type not in NOISE_TYPES:
+        raise NotImplementedError(f"DSM noise {noise_type!r}")
     if eps is not None:
-        return eps.reshape(shape).to(torch.float32)
+        return eps.reshape(shape).to(device=device, dtype=torch.float32)
     if generator is None:
         raise ValueError("needs a generator or an injected eps")
-    return torch.randn(shape, generator=generator,
-                       device=device if device is not None else generator.device)
+    dev = device if device is not None else generator.device
+    if noise_type == "laplace":
+        return sample_laplace(shape, generator, device=dev)
+    if noise_type == "uniform":
+        return torch.rand(shape, generator=generator, device=dev)
+    return torch.randn(shape, generator=generator, device=dev)
+
+
+def perturb(x, stdv, eps, noise_type="gaussian"):
+    """x_bar, the DSM's input: x + sigma * eps for Gaussian and Laplace
+    noise; for uniform noise u, x + 2 sigma u - sigma, as the reference's
+    add_uniform_noise draws it (JAX cardae.py:218-221), while the loss
+    target stays u."""
+    if noise_type == "uniform":
+        return x + 2.0 * stdv * eps - stdv
+    return x + stdv * eps
 
 
 def cdae_loss(module, latent, context, std, generator=None, eps=None,
-              compute_dtype=None):
-    """Denoising score-matching loss mse(sigma * score(x + sigma*eps), -eps),
-    mean over every element (reference resdae/mlp.py:344-381,
-    graddae/mlp.py:400-444). Gaussian noise only: no line of either
-    package sets the Laplace or uniform noise (ROADMAP, "Not ported").
+              compute_dtype=None, noise_type="gaussian"):
+    """Denoising score-matching loss mse(sigma * score(x_bar), -eps), mean
+    over every element (reference resdae/mlp.py:344-381,
+    graddae/mlp.py:400-444), x_bar = ``perturb(x, sigma, eps, noise_type)``
+    with Gaussian, Laplace or uniform noise ``eps`` (injected, else drawn
+    from ``generator``).
 
     ``compute_dtype='bfloat16'`` is the JAX twin's recipe: the noise, the
-    perturbation x + sigma*eps and the loss product sigma*score + eps stay
-    fp32; x_bar, the context and sigma are cast to bf16 and the score net
-    (the context contribution included; a grad-style net's input gradient
-    too) runs on its parameters cast to bf16, the gradient reaching the
-    fp32 parameters through the cast."""
+    perturbation x_bar and the loss product sigma*score + eps stay fp32;
+    x_bar, the context and sigma are cast to bf16 and the score net (the
+    context contribution included; a grad-style net's input gradient too)
+    runs on its parameters cast to bf16, the gradient reaching the fp32
+    parameters through the cast."""
     bsz, ssz, zdim = latent.shape
     x = latent.reshape(-1, zdim).to(torch.float32)
     stdv = _stdv(std, bsz, ssz, x)
-    eps = dsm_noise(x.shape, generator, eps, device=x.device)
-    x_bar = x + stdv * eps
+    eps = dsm_noise(x.shape, generator, eps, x.device, noise_type)
+    x_bar = perturb(x, stdv, eps, noise_type)
     net = cast_module(module, compute_dtype)
     x_bar_c, ctx_c, stdv_c = (cast_input(v, compute_dtype)
                               for v in (x_bar, context, stdv))
@@ -185,15 +208,14 @@ def dae_score(module, x, std):
 def dae_loss(module, x, std, generator=None, eps=None, noise_type="gaussian"):
     """Unconditional denoising score-matching loss
     mse(sigma * score(x + sigma*eps), -eps), mean over every element;
-    ``eps`` (n, input_dim) injected or drawn from ``generator``. Gaussian
-    noise only, as ``cdae_loss`` (ROADMAP, "Not ported")."""
-    if noise_type != "gaussian":
-        raise NotImplementedError(
-            f"DSM noise {noise_type!r} is not ported (ROADMAP, \"Not ported\": "
-            "the Laplace and uniform DSM noise)")
+    ``eps`` (n, input_dim) Gaussian or Laplace, injected or drawn from
+    ``generator``. Uniform noise raises, as in the JAX twin
+    (cardae.py:281)."""
+    if noise_type not in ("gaussian", "laplace"):
+        raise NotImplementedError(noise_type)
     x = x.to(torch.float32)
     stdv = _row_std(std, x.shape[0], x)
-    eps = dsm_noise(x.shape, generator, eps, device=x.device)
+    eps = dsm_noise(x.shape, generator, eps, x.device, noise_type)
     score = _score(module, x + stdv * eps, None, stdv, create_graph=True)
     return torch.mean((stdv * score + eps) ** 2)
 

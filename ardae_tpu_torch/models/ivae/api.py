@@ -1,9 +1,9 @@
 """Functional API of the implicit-posterior VAEs (JAX twin:
 ardae_tpu/models/ivae/api.py): sampling, the training loss, generation and
 reconstruction, and the IWS bound with a covariance-Gaussian
-pseudo-posterior, each for a Bernoulli (``logit``) or a Gaussian (``mu,
-logvar``) likelihood. The KDE, diagonal and prior bounds wait (ROADMAP
-queue 1, slice 6).
+pseudo-posterior (the drivers' eval), with a Gaussian-KDE or a diagonal
+Gaussian one, or brute force from the prior, each for a Bernoulli
+(``logit``) or a Gaussian (``mu, logvar``) likelihood.
 
 Every sampler takes an optional injected noise tensor (``eps=``, ``u=``)
 and otherwise draws from an explicit ``torch.Generator``; z always comes
@@ -20,6 +20,8 @@ those zeros enter it; ``ivae_loss(compute_dtype='bfloat16')`` runs the
 encoder and decoder on bf16 parameters and keeps z, the decoder's
 outputs and the loss in fp32.
 """
+
+import math
 
 import torch
 
@@ -209,6 +211,90 @@ def cov_gaussian_iws_from_draws(module, x, z, jitter=0.0, generator=None,
     logposterior = mvn_logprob(newz, mu_qz, chol)
     loglikelihood, logprior = _loglik_and_prior(module, x, newz)
     return iwae_bound(loglikelihood + logprior - logposterior, dim=1)
+
+
+def _normal(shape, generator, eps, like):
+    """The injected ``eps`` on ``like``'s device, or a draw of ``shape``."""
+    if eps is None:
+        if generator is None:
+            raise ValueError("needs a generator or an injected draw")
+        eps = torch.randn(shape, generator=generator, device=generator.device)
+    return eps.to(device=like.device, dtype=like.dtype).reshape(shape)
+
+
+# elements of one block of the KDE's (rows, kernels, z) differences
+_KDE_BLOCK = 1 << 23
+
+
+def logprob_kde(module, x, sample_size, noise_std=None, reduce="mean",
+                generator=None, eps=None, idx=None, new_eps=None):
+    """IWS bound with a Gaussian-KDE pseudo-posterior over each item's
+    implicit draws (reference models/ivae/mnist.py:321-376, scipy's
+    gaussian_kde item by item), as the JAX twin computes it: Scott's factor
+    S^(-1/(d+4)), the kernel covariance covmat(z) * factor^2 + 1e-9 I, its
+    Cholesky; S new points, each a kernel centre picked by ``idx`` (bsz,
+    S) plus the kernel's noise ``new_eps`` (bsz, S, d); the KDE density
+    by a triangular solve of every difference, a logsumexp minus log S.
+    The JAX twin forms every item's (S, S, d) differences at once (128 MiB
+    an item at S 1024, z 32); here they go through in blocks of at most
+    2**23 elements, item by item. ``eps`` is the encoder's noise; each
+    draw not given comes from ``generator``, in the order eps, idx,
+    new_eps."""
+    z = sample_latents(module, x, sample_size, noise_std, generator, eps)
+    bsz, ssz, zdim = z.shape
+    factor = ssz ** (-1.0 / (zdim + 4))
+    eye = torch.eye(zdim, dtype=z.dtype, device=z.device)
+    chol = torch.linalg.cholesky(covmat(z) * factor ** 2 + 1e-9 * eye)
+    if idx is None:
+        if generator is None:
+            raise ValueError("logprob_kde needs a generator or an injected idx")
+        idx = torch.randint(0, ssz, (bsz, ssz), generator=generator,
+                            device=generator.device)
+    idx = torch.as_tensor(idx, device=z.device, dtype=torch.long)
+    centers = torch.gather(z, 1, idx[:, :, None].expand(bsz, ssz, zdim))
+    new_eps = _normal((bsz, ssz, zdim), generator, new_eps, z)
+    newz = centers + torch.matmul(new_eps, chol.transpose(-1, -2))
+
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), -1)
+    lognorm = 0.5 * (logdet + zdim * math.log(2.0 * math.pi))
+    rows = max(1, _KDE_BLOCK // (ssz * zdim))
+    logposterior = torch.empty(bsz, ssz, dtype=z.dtype, device=z.device)
+    for b in range(bsz):
+        for lo in range(0, ssz, rows):
+            diff = newz[b, lo:lo + rows, None, :] - z[b, None, :, :]
+            sol = torch.linalg.solve_triangular(
+                chol[b], diff.reshape(-1, zdim).T, upper=False)
+            maha = torch.sum(sol ** 2, dim=0).reshape(diff.shape[:2])
+            logposterior[b, lo:lo + rows] = torch.logsumexp(
+                -0.5 * maha - lognorm[b], dim=1) - math.log(ssz)
+    loglikelihood, logprior = _loglik_and_prior(module, x, newz)
+    return reduce_batch(iwae_bound(loglikelihood + logprior - logposterior, dim=1),
+                        reduce)
+
+
+def logprob_diag(module, x, sample_size, noise_std=None, reduce="mean",
+                 generator=None, eps=None, new_eps=None):
+    """IWS bound with a diagonal-Gaussian pseudo-posterior (reference
+    models/ivae/mnist.py:439-486): each item's implicit draws give the mean
+    and log(variance (ddof 0) + 1e-10), re-sampled with ``new_eps`` (bsz,
+    S, d). Draws not given come from ``generator``, eps first."""
+    z = sample_latents(module, x, sample_size, noise_std, generator, eps)
+    mu = torch.mean(z, dim=1, keepdim=True)
+    logvar = torch.log(torch.var(z, dim=1, unbiased=False, keepdim=True) + 1e-10)
+    newz = mu + torch.exp(0.5 * logvar) * _normal(z.shape, generator, new_eps, z)
+    logposterior = torch.sum(logprob_gaussian(mu, logvar, newz), dim=-1)
+    loglikelihood, logprior = _loglik_and_prior(module, x, newz)
+    return reduce_batch(iwae_bound(loglikelihood + logprior - logposterior, dim=1),
+                        reduce)
+
+
+def logprob_prior(module, x, sample_size, z=None, reduce="mean", generator=None):
+    """Brute force: log p(x) ~ log mean_k p(x | z_k), z_k ~ N(0, I) (bsz, S,
+    z_dim), injected or drawn from ``generator`` (reference
+    models/ivae/mnist.py:488-518)."""
+    z = _normal((x.shape[0], sample_size, module.z_dim), generator, z, x)
+    loglikelihood, _ = _loglik_and_prior(module, x, z)
+    return reduce_batch(iwae_bound(loglikelihood, dim=1), reduce)
 
 
 def _loglik_and_prior(module, x, newz):

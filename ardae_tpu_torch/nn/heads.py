@@ -2,10 +2,10 @@
 models/reparam.py:12-203).
 
 Heads return distribution parameters only; sampling is
-``core/rng.sample_gaussian`` with an injected or generator-drawn noise. The
-relaxed samplers (Binary-Concrete, Gumbel-Softmax) and CategoricalHead,
-which only the JAX tests call, wait with the rest of that driverless code
-(ROADMAP queue 1, item 14b).
+``core/rng.sample_gaussian`` with an injected or generator-drawn noise, and
+for class logits the relaxed samplers (Binary-Concrete, Gumbel-Softmax),
+whose uniform noise ``u`` is injected or drawn from a generator. No driver
+builds CategoricalHead or calls the relaxed samplers.
 """
 
 import torch
@@ -65,3 +65,41 @@ class BernoulliHead(nn.Module):
 
     def forward(self, h):
         return self.logit_fn(h)
+
+
+class CategoricalHead(nn.Module):
+    """Linear class logits, ``logit_fn`` (reference models/reparam.py:264-278)."""
+
+    def __init__(self, in_features, num_class):
+        super().__init__()
+        self.logit_fn = Linear(in_features, num_class)
+
+    def forward(self, h):
+        return self.logit_fn(h)
+
+
+def _uniform(logits, generator, u):
+    if u is None:
+        if generator is None:
+            raise ValueError("needs a generator or an injected u")
+        u = torch.rand(logits.shape, generator=generator, device=generator.device)
+    return u.to(device=logits.device, dtype=logits.dtype).reshape(logits.shape)
+
+
+def sample_logistic_sigmoid(logits, temperature=1.0, eps=1e-20, generator=None,
+                            u=None):
+    """Binary-Concrete relaxed sample (reference models/reparam.py:111-121):
+    sigmoid((logits + log(u / (1 - u) + eps)) / temperature), u ~ U(0, 1)."""
+    u = _uniform(logits, generator, u)
+    logistic = torch.log(u / (1.0 - u) + eps)
+    return torch.sigmoid((logits + logistic) / temperature)
+
+
+def sample_gumbel_softmax(logits, temperature=1.0, eps=1e-20, generator=None,
+                          u=None):
+    """Gumbel-Softmax relaxed sample (reference models/reparam.py:211-232):
+    softmax((logits - log(-log(u + eps) + eps)) / temperature) over the
+    last axis, u ~ U(0, 1)."""
+    u = _uniform(logits, generator, u)
+    gumbel = -torch.log(-torch.log(u + eps) + eps)
+    return torch.softmax((logits + gumbel) / temperature, dim=-1)

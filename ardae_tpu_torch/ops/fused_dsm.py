@@ -25,7 +25,7 @@ import functools
 
 import torch
 
-from ardae_tpu_torch.models.cdae.cardae import dsm_noise
+from ardae_tpu_torch.models.cdae.cardae import dsm_noise, perturb
 from ardae_tpu_torch.ops import native
 
 ACTS = {"softplus": 0, "relu": 1, "tanh": 2}
@@ -202,36 +202,43 @@ def supports_fused_dsm(module, n_rows):
     return (layers - 1) * n_rows * module.h_dim * 4 <= MAX_WORKSPACE_BYTES
 
 
-def prepare_inputs(module, latent, context, std, generator, eps):
+def prepare_inputs(module, latent, context, std, generator, eps,
+                   noise_type="gaussian"):
     """The DSM kernels' arguments for a CARDAE (see ``fused_cdae_dsm_loss``):
-    (act, l0, xbar, eps, sigma, ctx_l0, flat weights)."""
+    (act, l0, xbar, eps, sigma, ctx_l0, flat weights); ``xbar`` and ``eps``
+    formed as ``cdae_loss`` forms them for ``noise_type``."""
     bsz, ssz, d = latent.shape
     n = bsz * ssz
     x = latent.reshape(n, d).to(torch.float32)
     sigma = torch.as_tensor(std, dtype=torch.float32, device=x.device)
     sigma = sigma.expand(bsz, ssz, 1).reshape(n, 1).contiguous()
-    eps = dsm_noise((n, d), generator, eps, device=x.device).contiguous()
-    xbar = (x + sigma * eps).contiguous()
+    eps = dsm_noise((n, d), generator, eps, x.device, noise_type).contiguous()
+    xbar = perturb(x, sigma, eps, noise_type).contiguous()
     ctx_l0 = module.ctx_l0(context)
     flat, l0 = flat_weights(module)
     return module.nonlinearity, l0, xbar, eps, sigma, ctx_l0, flat
 
 
-def fused_cdae_dsm_loss(module, latent, context, std, generator=None, eps=None):
-    """Drop-in for ``cdae_loss`` (gaussian noise) on supported configs.
+def fused_cdae_dsm_loss(module, latent, context, std, generator=None, eps=None,
+                        noise_type="gaussian"):
+    """Drop-in for ``cdae_loss`` on supported configs, with any of its
+    noises: the kernel takes x_bar and the loss target eps as inputs, so
+    Laplace and uniform noise change only ``prepare_inputs``. (The JAX
+    package runs XLA's cdae_loss for such noise, train/step.py:191; the
+    kernel computes the same function.)
 
     latent (bsz, ssz, d), context (bsz, ctx_dim), std (bsz, ssz, 1); ``eps``
     the injected DSM noise (n, d), else drawn from ``generator``. Gradients
     reach every weight and, through d/d(ctx_l0), the context encoder;
     latent, context and std are constants (phase A detaches them)."""
     act, l0, xbar, eps, sigma, ctx_l0, flat = prepare_inputs(
-        module, latent, context, std, generator, eps)
+        module, latent, context, std, generator, eps, noise_type)
     return dsm_chain(act, l0, xbar, eps, sigma, ctx_l0, *flat)
 
 
 def fused_cdae_dsm_loss_reference(module, latent, context, std, generator=None,
-                                  eps=None):
+                                  eps=None, noise_type="gaussian"):
     """``fused_cdae_dsm_loss`` in plain PyTorch on any device."""
     act, l0, xbar, eps, sigma, ctx_l0, flat = prepare_inputs(
-        module, latent, context, std, generator, eps)
+        module, latent, context, std, generator, eps, noise_type)
     return dsm_chain_reference(act, l0, xbar, eps, sigma, ctx_l0, *flat)

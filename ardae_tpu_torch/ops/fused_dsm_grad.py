@@ -198,22 +198,26 @@ def supports_fused_dsm_grad(module, n_rows):
 
 
 def fused_cdae_dsm_grad_loss(module, latent, context, std, generator=None,
-                             eps=None):
-    """Drop-in for ``cdae_loss`` (gaussian noise, grad style) on supported
-    configs.
+                             eps=None, noise_type="gaussian"):
+    """Drop-in for ``cdae_loss`` (grad style) on supported configs, with any
+    of its noises: x_bar and the loss target eps are the kernel's inputs,
+    formed by ``prepare_inputs`` for ``noise_type``. (The JAX package runs
+    XLA's cdae_loss for Laplace and uniform noise, train/step.py:191; the
+    kernel computes the same function.)
 
     latent (bsz, ssz, d), context (bsz, ctx_dim), std (bsz, ssz, 1); ``eps``
     the injected DSM noise (n, d), else drawn from ``generator``. Gradients
     reach every weight and, through d/d(ctx_l0), the context encoder;
     latent, context and std are constants (phase A detaches them)."""
     act, l0, xbar, eps, sigma, ctx_l0, flat = prepare_inputs(
-        module, latent, context, std, generator, eps)
+        module, latent, context, std, generator, eps, noise_type)
     return dsm_grad_chain(act, l0, xbar, eps, sigma, ctx_l0, *flat)
 
 
 def fused_cdae_dsm_grad_loss_reference(module, latent, context, std,
-                                       generator=None, eps=None):
+                                       generator=None, eps=None,
+                                       noise_type="gaussian"):
     """``fused_cdae_dsm_grad_loss`` in plain PyTorch on any device."""
     act, l0, xbar, eps, sigma, ctx_l0, flat = prepare_inputs(
-        module, latent, context, std, generator, eps)
+        module, latent, context, std, generator, eps, noise_type)
     return dsm_grad_chain_reference(act, l0, xbar, eps, sigma, ctx_l0, *flat)

@@ -43,7 +43,7 @@ import torch
 
 from ardae_tpu_torch.core.precision import cast_input, cast_module, compute_dtype
 from ardae_tpu_torch.data.loader import gather_batches
-from ardae_tpu_torch.models.cdae.cardae import cdae_loss, cdae_score
+from ardae_tpu_torch.models.cdae.cardae import cdae_loss, cdae_score, dsm_noise
 from ardae_tpu_torch.models.ivae import api as ivae_api
 from ardae_tpu_torch.ops.fused_dsm import fused_cdae_dsm_loss, supports_fused_dsm
 from ardae_tpu_torch.ops.fused_dsm_grad import (
@@ -67,6 +67,9 @@ class StepConfig:
     train_nstd_cdae: int = 1
     train_nz_model: int = 1
     ctx_type: str = "data"  # data | lt0 | hidden1a (aux models)
+    # the DSM noise: gaussian | laplace | uniform (models/cdae/cardae.py);
+    # no driver flag sets it, as in the JAX twin
+    noise_type: str = "gaussian"
     # the hand-written fused DSM kernels for phase A (ops/fused_dsm for a
     # res-style cdae, ops/fused_dsm_grad for a grad-style one); a config the
     # kernel does not cover raises instead of falling back
@@ -174,9 +177,9 @@ def _phase_a_kernel(cdae, n_rows, dtype):
 def cdae_update(model, cdae, opt_d, cfg, x, generator, draws=None, mesh=None):
     """One PHASE-A update, in place. ``draws``: optional injected
     ``latent_eps`` (B*nz, noise; an aux model's pair), ``std`` (B, nz*nstd,
-    1), ``dsm_eps`` (B*nz*nstd, z), at the global batch's shapes. ``x`` is
-    this rank's part of the batch under a ``mesh``. Returns the metrics
-    (detached tensors)."""
+    1), ``dsm_eps`` (B*nz*nstd, z; of ``cfg.noise_type``), at the global
+    batch's shapes. ``x`` is this rank's part of the batch under a
+    ``mesh``. Returns the metrics (detached tensors)."""
     draws = draws or {}
     bsz = x.shape[0]
     lsm, sigma, latent_mean, net, x_c = _sigma_stats(
@@ -197,14 +200,19 @@ def cdae_update(model, cdae, opt_d, cfg, x, generator, draws=None, mesh=None):
     stdmat = sigma * local(mesh, std, 0, 1)
     lsm_exp = lsm if nstd == 1 else (
         lsm[:, :, None, :].expand(bsz, nz, nstd, zdim).reshape(bsz, nz * nstd, zdim))
-    eps = _local_rows(mesh, _randn((full * ns, zdim), generator, x.device,
-                                   draws.get("dsm_eps")), full, ns, True)
+    eps = _local_rows(mesh, dsm_noise((full * ns, zdim), generator,
+                                      draws.get("dsm_eps"), x.device,
+                                      cfg.noise_type), full, ns, True)
     if cfg.use_kernels:
+        # the kernels take any of cdae_loss's noises (JAX runs XLA for a
+        # non-Gaussian one, step.py:191: the same function)
         loss_fn = _phase_a_kernel(cdae, bsz * nz * nstd, cfg.cdae_compute_dtype)
-        loss = loss_fn(cdae, lsm_exp, ctx, stdmat, eps=eps)
+        loss = loss_fn(cdae, lsm_exp, ctx, stdmat, eps=eps,
+                       noise_type=cfg.noise_type)
     else:
         loss = cdae_loss(cdae, lsm_exp, ctx, stdmat, eps=eps,
-                         compute_dtype=cfg.cdae_compute_dtype)
+                         compute_dtype=cfg.cdae_compute_dtype,
+                         noise_type=cfg.noise_type)
     opt_d.zero_grad(set_to_none=True)
     loss.backward()
     if mesh is not None:

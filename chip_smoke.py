@@ -211,9 +211,31 @@ Phases (each failure exits non-zero):
      kernels (loss_partial_kernel, dloss_dr_kernel), 2 + 2 launches a step.
      Each prints its worst differences and ms/step per rank beside the
      card line.
+  12. mnist32, the new bounds, the non-Gaussian DSM noise and the
+     driverless modules. 12a: the mnist-concat line (:47) with --dataset
+     mnist32 --nheight 32 through cli.ivae_ardae with --use-kernels, 6
+     steps (the grad kernel 1 + 1 launches a step at n = 128 x 625, d 32,
+     h 256, 5 layers), a val IWS-1024 eval after step 6 and the test eval,
+     each finite and negative, at eval batch 128; the mlp baseline (:28)
+     on mnist32 through cli.vae, 6 steps, no launch; the splits checked
+     gray and 1,024 wide. 12b: logprob_kde, logprob_diag and logprob_prior
+     on 12a's trained model at z 32 and S 1024 on 16 test items, card
+     against CPU from the same draws (per item <= 1e-3 nats), each
+     bound's card ms. 12c: both kernels against their plain versions on a
+     Laplace and a uniform draw (phase 3's bounds) at the flagship and
+     implicit-conv shapes; then 4 joint steps through train_chunk
+     (parallel/workers.py, a world of one, deterministic algorithms) with
+     StepConfig(noise_type=..., use_kernels=True) of the flagship with
+     Laplace and with uniform noise (2 + 2 res launches a step) and of
+     implicit conv with Laplace noise (1 + 1 grad), each against the same
+     steps with use_kernels False: the flagship's metrics every step,
+     implicit conv's at step 1 (std-scale 10000 makes its later steps
+     drift as phase 11's control does), within PAR_METRICS. 12d: CWNconv2d,
+     WNBilinear, the relaxed samplers, the Jacobian-clamping loss and
+     shuffle, one small call each on the card against the CPU.
 Then it prints the kernels' JSON line (each kernel's launches over the
-main path's runs, 5-5i but 5c, 8a-8c, 9b, 10f, 11a, 11b and 11e, and by
-line under "launched_by"; and at its
+main path's runs, 5-5i but 5c, 8a-8c, 9b, 10f, 11a, 11b, 11e, 12a and
+12c's train_chunk runs, and by line under "launched_by"; and at its
 first line's shape its error, times, FLOP,
 launches per step and bound, the kernel's other shapes beside them under
 "at_<line>": the grad kernel's "at_25-gaussians" and each kernel's phase
@@ -701,11 +723,13 @@ def flag(args, name):
 
 
 def drive_line(torch, dev, k, kernels, line_args, what, card, steps=STEPS,
-               data_root=None, dump=False, use_kernels=True):
-    """Phase 5/5b-5i, 10: ``steps`` steps of a line through cli.ivae_ardae.run
-    with --use-kernels (without, ``use_kernels`` False: no kernel may
-    launch; then, with ``dump``, the toy final dump instead of skipping the
-    test eval); every launch counter is 0 just before and read just after.
+               data_root=None, dump=False, use_kernels=True, evals=False):
+    """Phase 5/5b-5i, 10, 12a: ``steps`` steps of a line through
+    cli.ivae_ardae.run with --use-kernels (without, ``use_kernels`` False:
+    no kernel may launch; then, with ``dump``, the toy final dump instead of
+    skipping the test eval; with ``evals``, a val IWS eval after the last
+    step and the test eval, at eval batch 128, each finite and negative);
+    every launch counter is 0 just before and read just after.
     The driver must log the cdae context's width that context_dim_for
     gives; the logged losses and sigmas are finite, the master parameters
     fp32. Returns (this run's launches, the trained state, its ms/step per
@@ -720,8 +744,11 @@ def drive_line(torch, dev, k, kernels, line_args, what, card, steps=STEPS,
 
     name = flag(line_args, "--model")
     with tempfile.TemporaryDirectory() as tmp:
-        smoke = [a for a in SMOKE_ARGS if not (dump and a == "--skip-final-test-eval")]
-        argv = line_args + smoke + ["--use-kernels"] * use_kernels + [
+        smoke = [a for a in SMOKE_ARGS
+                 if not ((dump or evals) and a == "--skip-final-test-eval")]
+        evals_args = ["--eval-iws-interval", str(steps), "--eval-batch-size",
+                      "128"] if evals else []
+        argv = line_args + smoke + evals_args + ["--use-kernels"] * use_kernels + [
             "--max-iters", str(steps),
             "--cache", os.path.join(tmp, "exp"),
             "--data-root", data_root or os.path.join(tmp, "data")]
@@ -786,6 +813,18 @@ def drive_line(torch, dev, k, kernels, line_args, what, card, steps=STEPS,
         fail(f"trained encoder output {tuple(z.shape)} not finite/(8, 1, {z_dim})")
     if dump:
         check_dump(log, line_args, what)
+    if evals:
+        bounds = [(ln.split("|")[1].strip(), float(m.group(1)), float(t.group(1)))
+                  for ln in log for m, t in [(re.search(r"logprob \(iws\) (\S+)", ln),
+                                              re.search(r"sec/step\s+(\S+)", ln))]
+                  if m and t and ln.startswith(("| val", "| test"))]
+        if [b[0] for b in bounds] != ["val", "test"] or not all(
+                math.isfinite(v) and v < 0 for _, v, _ in bounds):
+            fail(f"{what} {name}: evals {bounds}, expected a finite negative val "
+                 "and test IWS")
+        print(f"{what} evals (IWS-{flag(line_args, '--iws-samples')}, batch 128): "
+              + "; ".join(f"{sp} {v:.4f} in {sec:.2f} s" for sp, v, sec in bounds),
+              flush=True)
     print(f"{what} main path: {steps} steps of the {name} line "
           f"{'with' if use_kernels else 'without'} --use-kernels in {wall:.1f} s "
           f"(set-up{' and dump' if dump else ''} "
@@ -2247,6 +2286,271 @@ def drive_parallel(torch, res, grad, kernels, card, by_line):
     print(f"phase 11 passed in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# phase 12: mnist32 (gray 32 x 32) through both drivers at the published
+# widths: the mnist-concat line (:47) and the mlp baseline (:28), each with
+# --dataset mnist32 --nheight 32
+MNIST32_ARGS = with_flags(MNIST_CONCAT_ARGS, dataset="mnist32", nheight="32")
+BASELINE_LINES["mlp-mnist32"] = with_flags(BASELINE_LINES["mlp"], dataset="mnist32",
+                                           nheight="32")
+BASELINE_MODELS["mlp-mnist32"] = dict(BASELINE_MODELS["mlp"], nheight=32)
+P12_NOISES = ("laplace", "uniform")
+P12_ITEMS, P12_SAMPLES = 16, 1024   # 12b: test items, draws an item
+
+
+def check_width(torch, data_root, what):
+    """The mnist32 splits the drivers read: gray, 1,024 wide."""
+    from ardae_tpu_torch.data import get_dataset
+
+    splits = get_dataset("mnist32", root=data_root)
+    widths = {sp: splits[sp].shape[1] for sp in ("train", "val", "test")}
+    if set(widths.values()) != {1024} or splits["info"]["binarize"]:
+        fail(f"{what}: mnist32 splits {widths}, binarize {splits['info']['binarize']}")
+    return splits
+
+
+def drive_mnist32(torch, dev, grad, kernels, card, by_line, tmp):
+    """12a: the mnist-concat line on mnist32 through cli.ivae_ardae with
+    --use-kernels (6 steps, a val IWS eval, the test eval) and the mlp
+    baseline on it through cli.vae (6 steps, no launch). Returns the
+    trained implicit state and the splits."""
+    data = os.path.join(tmp, "data")
+    by_line["mnist32-concat"], state, _ = drive_line(
+        torch, dev, grad, kernels, MNIST32_ARGS, "phase 12a mnist32 mnist-concat",
+        card, data_root=data, evals=True)
+    splits = check_width(torch, data, "phase 12a")
+    torch.cuda.empty_cache()
+    drive_baseline_line(torch, dev, kernels, "mlp-mnist32", tmp, card,
+                        what="phase 12a mnist32 mlp baseline")
+    print(f"phase 12a: both drivers trained on mnist32, splits 1,024 wide "
+          f"({splits['train'].shape[0]:,} / {splits['val'].shape[0]:,} / "
+          f"{splits['test'].shape[0]:,}), gray | {card}", flush=True)
+    return state, splits
+
+
+def drive_bounds(torch, state, splits, card):
+    """12b: logprob_kde, logprob_diag and logprob_prior at z 32 and S 1024
+    on 16 mnist32 test items, the model trained in 12a copied to the CPU,
+    the same draws: per item |card - CPU| <= IWS_ATOL nats; each bound's
+    card ms (median of 3, synchronised)."""
+    import copy
+
+    from ardae_tpu_torch.models.ivae import api as ivae_api
+
+    g = torch.Generator().manual_seed(19)
+    x = torch.as_tensor(splits["test"][:P12_ITEMS])
+    model = state.model
+    cpu_model = copy.deepcopy(model).cpu()
+    ssz, zdim = P12_SAMPLES, model.z_dim
+    eps = ivae_api.make_eps(cpu_model, P12_ITEMS, ssz, generator=g)
+    draws = {
+        "kde": (ivae_api.logprob_kde, dict(
+            eps=eps, idx=torch.randint(0, ssz, (P12_ITEMS, ssz), generator=g),
+            new_eps=torch.randn(P12_ITEMS, ssz, zdim, generator=g))),
+        "diag": (ivae_api.logprob_diag, dict(
+            eps=eps, new_eps=torch.randn(P12_ITEMS, ssz, zdim, generator=g))),
+        "prior": (ivae_api.logprob_prior, dict(
+            z=torch.randn(P12_ITEMS, ssz, zdim, generator=g))),
+    }
+    for name, (fn, kw) in draws.items():
+        on_card = {k: v.cuda() for k, v in kw.items()}
+        with torch.no_grad():
+            card_v = fn(model, x.cuda(), ssz, reduce="per_item", **on_card)
+            ms = time_ms(torch, lambda: fn(model, x.cuda(), ssz, reduce="per_item",
+                                           **on_card), reps=3)
+            cpu_v = fn(cpu_model, x, ssz, reduce="per_item", **kw)
+        card_v = card_v.cpu()
+        if not (bool(torch.isfinite(card_v).all()) and bool(torch.isfinite(cpu_v).all())):
+            fail(f"phase 12b {name}: the bound is not finite")
+        diff = float((card_v - cpu_v).abs().max())
+        print(f"phase 12b logprob_{name} at the mnist32 mnist-concat model, "
+              f"{P12_ITEMS} test items, S {ssz}, z {zdim}: card vs CPU max per-item "
+              f"|diff| {diff:.2e} nats (bound {IWS_ATOL:.0e}); card mean "
+              f"{float(card_v.mean()):.4f}; {ms:.3f} ms on the card | {card}",
+              flush=True)
+        if not diff <= IWS_ATOL:
+            fail(f"phase 12b {name}: card and CPU differ by {diff:.2e} nats")
+
+
+def check_noise(torch, dev, k, fd, what, line, shape):
+    """12c: the kernel against its plain version on Laplace and uniform
+    noise at a line's shape (phase 3's bounds)."""
+    import functools
+
+    from ardae_tpu_torch.models.registry import build_cdae
+
+    bsz, ssz, d, h, layers, act, seed = shape
+    for noise_type in P12_NOISES:
+        prepare = functools.partial(fd.prepare_inputs, noise_type=noise_type)
+        args = dsm_case(prepare, build_cdae, torch, dev, k["cdae"], bsz, ssz, d,
+                        h, layers, act, seed)
+        lrel, labs, grel, gabs = compare(torch, k["fn"].apply, k["plain"], args)
+        print(f"{what} compare {k['cdae']} with {noise_type} noise at the {line} "
+              f"shape n={bsz}x{ssz} d={d} h={h} layers={layers} {act}: loss rel "
+              f"{lrel:.2e} (abs {labs:.2e}), worst grad rel-norm {grel:.2e} (max "
+              f"abs {gabs:.2e})", flush=True)
+        if not (lrel <= LOSS_RTOL and grel <= GRAD_RTOL):
+            fail(f"{what}: {k['cdae']} kernel disagrees with the plain version "
+                 f"on {noise_type} noise")
+        del args
+        torch.cuda.empty_cache()
+
+
+def drive_noise_steps(torch, k, kernels, line_args, line, noise_type, card,
+                      every_step):
+    """12c: PAR_STEPS joint steps of a line at its published widths through
+    train_chunk (parallel/workers.py, a world of one on the card, torch's
+    deterministic algorithms) with StepConfig(noise_type, use_kernels=True),
+    counters at 0 just before and read just after, then the same steps
+    with use_kernels False (cdae_loss in plain PyTorch). The metrics of
+    every step (``every_step``; else of step 1, the later ones reported)
+    within PAR_METRICS relative. Returns the kernel run's launches."""
+    from ardae_tpu_torch.parallel.workers import joint_steps
+
+    what = f"phase 12c {line} {noise_type}"
+    spec = line_spec(line_args)
+    spec["cfg"] = dict(spec["cfg"], noise_type=noise_type)
+    reset_counts(kernels)
+    with deterministic():
+        run = joint_steps(torch.device("cuda:0"), spec)
+        launches = read_counts(kernels)
+        plain = joint_steps(torch.device("cuda:0"),
+                            dict(spec, cfg=dict(spec["cfg"], use_kernels=False)))
+    want = {n: (PAR_STEPS * k["updates"] if n in k["fn"].launches else 0)
+            for n in launches}
+    if launches != want or run["launches"] != want or any(plain["launches"].values()):
+        fail(f"{what}: launches {launches} / {run['launches']}, plain "
+             f"{plain['launches']}, expected {want} and none")
+    per_step = [max(abs(m[n] - v) / max(abs(v), 1e-12) for n, v in p.items())
+                for m, p in zip(run["metrics"], plain["metrics"])]
+    bounded = per_step if every_step else per_step[:1]
+    if not all(math.isfinite(v) for m in run["metrics"] for v in m.values()):
+        fail(f"{what}: metrics {run['metrics']} not finite")
+    if max(bounded) > PAR_METRICS:
+        fail(f"{what}: metrics {max(bounded):.3e} off the plain version's")
+    # the parameter updates from step 0; not the optimizer states: the
+    # grad-style energy head's bias has no gradient in the plain version
+    # (None, so no state) and a zero one from the kernel
+    diffs = {f"{key} update @{step}": update_rel_norm(
+        run["snapshots"][step][key], run["snapshots"][0][key],
+        plain["snapshots"][step][key])
+        for step in (1, PAR_STEPS) for key in ("model", "cdae")}
+    print(f"{what}: {PAR_STEPS} steps through train_chunk with the {k['kind']} "
+          f"kernel, launches {launches}; worst metric rel per step against the "
+          f"plain version {[f'{v:.2e}' for v in per_step]} (bound {PAR_METRICS:.0e} "
+          f"{'every step' if every_step else 'at step 1'}), {show(diffs)}; "
+          f"loss (cdae) {run['metrics'][-1]['cdae_loss']:.4f}; ms/step "
+          f"{[round(v, 2) for v in run['ms']]}, plain "
+          f"{[round(v, 2) for v in plain['ms']]} | {card}", flush=True)
+    return launches
+
+
+def drive_extras(torch, card):
+    """12d: the driverless modules, one small call each on the card against
+    the CPU from the same weights and draws: CWNconv2d and WNBilinear (a
+    squared error and every gradient, as card_vs_cpu bounds them), the
+    relaxed samplers (rel-norm <= LOSS_RTOL), the Jacobian-clamping loss
+    of a tanh layer (card_vs_cpu) and shuffle (bit for bit)."""
+    from ardae_tpu_torch.core import jacobian_clamping as jac
+    from ardae_tpu_torch.core.stats import shuffle
+    from ardae_tpu_torch.nn import heads, torchkit_extras as tk
+    from ardae_tpu_torch.nn.initializers import init_module
+    from ardae_tpu_torch.nn.linear import Linear
+
+    g = torch.Generator().manual_seed(23)
+    img, ctx = torch.randn(16, 32, 16, 16, generator=g), torch.randn(16, 32, generator=g)
+    target_img = torch.randn(16, 64, 16, 16, generator=g)
+    x1, x2 = torch.randn(256, 64, generator=g), torch.randn(256, 48, generator=g)
+    target_bil = torch.randn(256, 32, generator=g)
+    gen = lambda: torch.Generator().manual_seed(5)
+    cases = {
+        "CWNconv2d (16, 32, 16, 16) -> 64 channels": (
+            init_module(tk.CWNconv2d(32, 32, 64, 3, 1, 1), gen()),
+            lambda m, d: torch.mean((m(img.to(d), ctx.to(d)) - target_img.to(d)) ** 2)),
+        "WNBilinear 64 x 48 -> 32, 256 rows": (
+            init_module(tk.WNBilinear(64, 48, 32), gen()),
+            lambda m, d: torch.mean((m(x1.to(d), x2.to(d)) - target_bil.to(d)) ** 2)),
+    }
+    z = torch.randn(128, 32, generator=g)
+    perturb = torch.randn(128, 4, 32, generator=g)
+    layer = init_module(Linear(32, 64), gen())
+    cases["jac_clamping_loss, tanh layer 32 -> 64, 128 x 4 perturbations, eta_min 4"] = (
+        layer, lambda m, d: jac.jac_clamping_loss(
+            lambda zz: torch.tanh(m(zz)), torch.tanh(m(z.to(d))), z.to(d), 4, 4.0,
+            perturb=perturb.to(d)))
+    for name, (module, loss_fn) in cases.items():
+        lrel, grel = card_vs_cpu(torch, module, loss_fn, f"phase 12d {name}")
+        print(f"phase 12d {name}: card vs CPU loss rel {lrel:.2e}, worst grad "
+              f"rel-norm {grel:.2e}", flush=True)
+    logits, u = torch.randn(512, 10, generator=g), torch.rand(512, 10, generator=g)
+    for fn in (heads.sample_gumbel_softmax, heads.sample_logistic_sigmoid):
+        card_v = fn(logits.cuda(), 0.5, u=u.cuda()).cpu()
+        rel = rel_norm(card_v, fn(logits, 0.5, u=u))
+        if not (bool(torch.isfinite(card_v).all()) and rel <= LOSS_RTOL):
+            fail(f"phase 12d {fn.__name__}: card vs CPU rel-norm {rel:.2e}")
+        print(f"phase 12d {fn.__name__} (512 x 10, temperature 0.5): card vs CPU "
+              f"rel-norm {rel:.2e}", flush=True)
+    perm = torch.stack([torch.randperm(1024, generator=g) for _ in range(32)])
+    zs = torch.randn(1024, 32, generator=g)
+    drawn = shuffle(zs.cuda(), generator=torch.Generator(device="cuda").manual_seed(0))
+    if not (torch.equal(shuffle(zs.cuda(), perm=perm.cuda()).cpu(), shuffle(zs, perm=perm))
+            and torch.equal(drawn.sort(0).values.cpu(), zs.sort(0).values)):
+        fail("phase 12d shuffle: card and CPU differ, or a column is no permutation")
+    print(f"phase 12d shuffle (1,024 x 32): card bit for bit the CPU's on one "
+          f"permutation a column; drawn on the card, each column a permutation "
+          f"| {card}", flush=True)
+
+
+def drive_phase12(torch, dev, res, grad, kernels, card, by_line, fd):
+    """Phase 12: mnist32 through both drivers (12a), the three new bounds on
+    its trained model (12b), the Laplace and uniform DSM noise through both
+    kernels and the joint step (12c), the driverless modules (12d)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        state, splits = drive_mnist32(torch, dev, grad, kernels, card, by_line, tmp)
+        drive_bounds(torch, state, splits, card)
+    del state, splits
+    torch.cuda.empty_cache()
+    print(f"phase 12a-b passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    check_noise(torch, dev, res, fd, "phase 12c", "flagship", res["lines"]["flagship"])
+    check_noise(torch, dev, grad, fd, "phase 12c", "implicit-conv",
+                grad["lines"]["implicit-conv"])
+    for k, args, line, noise_type, every_step in (
+            (res, FLAGSHIP_ARGS, "flagship", "laplace", True),
+            (res, FLAGSHIP_ARGS, "flagship", "uniform", True),
+            (grad, IMPLICIT_CONV_ARGS, "implicit-conv", "laplace", False)):
+        by_line[f"{line}-{noise_type}"] = drive_noise_steps(
+            torch, k, kernels, args, line, noise_type, card, every_step)
+        torch.cuda.empty_cache()
+    drive_extras(torch, card)
+    print(f"phase 12 passed in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def kernels_under_test(fd, fg):
+    """Each kernel's entry of the checks: its autograd function, plain
+    version, input maker, launches a cdae update, ragged shapes and line
+    shapes ((bsz, ssz, d, h, layers, act, seed))."""
+    acts = ("softplus", "relu", "tanh")
+    res = {"cdae": "mlp-res", "kind": "res", "fn": fd.FusedDSMFunction,
+           "plain": fd.dsm_chain_reference, "prepare": fd.prepare_inputs,
+           "updates": 2,
+           "ragged": [(3, 37, 5, 24, 2, a, 1) for a in acts]
+           + [(4, 300, 32, 136, 3, "tanh", 2)],
+           "lines": {"flagship": (128, 625, 32, 512, 5, "softplus", 3),
+                     # one rank's rows in phase 11a (dp 2)
+                     "flagship-dp2-shard": (64, 625, 32, 512, 5, "softplus", 5)}}
+    grad = {"cdae": "mlp-grad", "kind": "grad", "fn": fg.FusedDSMGradFunction,
+            "plain": fg.dsm_grad_chain_reference, "prepare": fd.prepare_inputs,
+            "updates": 1,
+            "ragged": [(3, 37, d, 24, 2, a, 1) for d in (5, 2) for a in acts]
+            + [(4, 50, 32, 136, 3, "tanh", 2)],
+            "lines": {"implicit-conv": (128, 625, 32, 256, 5, "softplus", 3),
+                      "25-gaussians": (512, 256, 2, 256, 3, "softplus", 4),
+                      # one rank's rows in phase 11b (sp 5)
+                      "implicit-conv-sp5-shard": (128, 125, 32, 256, 5,
+                                                  "softplus", 6)}}
+    return res, grad
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2268,25 +2572,7 @@ def main():
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} | {card} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    acts = ("softplus", "relu", "tanh")
-    res = {"cdae": "mlp-res", "kind": "res", "fn": fd.FusedDSMFunction,
-           "plain": fd.dsm_chain_reference, "prepare": fd.prepare_inputs,
-           "updates": 2,
-           "ragged": [(3, 37, 5, 24, 2, a, 1) for a in acts]
-           + [(4, 300, 32, 136, 3, "tanh", 2)],
-           "lines": {"flagship": (128, 625, 32, 512, 5, "softplus", 3),
-                     # one rank's rows in phase 11a (dp 2)
-                     "flagship-dp2-shard": (64, 625, 32, 512, 5, "softplus", 5)}}
-    grad = {"cdae": "mlp-grad", "kind": "grad", "fn": fg.FusedDSMGradFunction,
-            "plain": fg.dsm_grad_chain_reference, "prepare": fd.prepare_inputs,
-            "updates": 1,
-            "ragged": [(3, 37, d, 24, 2, a, 1) for d in (5, 2) for a in acts]
-            + [(4, 50, 32, 136, 3, "tanh", 2)],
-            "lines": {"implicit-conv": (128, 625, 32, 256, 5, "softplus", 3),
-                      "25-gaussians": (512, 256, 2, 256, 3, "softplus", 4),
-                      # one rank's rows in phase 11b (sp 5)
-                      "implicit-conv-sp5-shard": (128, 125, 32, 256, 5,
-                                                  "softplus", 6)}}
+    res, grad = kernels_under_test(fd, fg)
     kernels = (res, grad)
 
     t0 = time.perf_counter()
@@ -2356,6 +2642,7 @@ def main():
     drive_bf16(torch, dev, res, grad, kernels, card, by_line)
     print(f"phase 10 passed in {time.perf_counter() - t10:.1f} s", flush=True)
     drive_parallel(torch, res, grad, kernels, card, by_line)
+    drive_phase12(torch, dev, res, grad, kernels, card, by_line, fd)
     launches = {n: sum(c[n] for c in by_line.values()) for k in kernels
                 for n in k["fn"].launches}
     launched_by = {n: {line: c[n] for line, c in by_line.items() if c[n]}

@@ -1,6 +1,7 @@
 """The port's MNIST splits are byte-identical to ardae_tpu.data.get_dataset:
 the synthetic surrogates (dbMNIST, sbMNIST, each also in final mode) and,
-with idx or amat files on disk, the real-file paths."""
+with idx or amat files on disk, the real-file paths. mnist32 and
+StackedMNIST: tests/test_torch_mnist32.py."""
 
 import os
 import struct
@@ -109,5 +110,8 @@ def test_real_idx_files_identical(tmp_path):
 
 
 def test_unported_datasets_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_get("mnist32")
+    """A name neither package builds raises in both (mnist32 is ported:
+    tests/test_torch_mnist32.py holds its splits against JAX's)."""
+    for get in (j_get, t_get):
+        with pytest.raises(NotImplementedError):
+            get("mnist64")

@@ -125,10 +125,33 @@ def test_dae_score_and_loss(name):
 
 
 def test_dae_loss_takes_gaussian_noise_only():
-    _, _, tm = _build("MLPResARDAE")
-    with pytest.raises(NotImplementedError, match="Not ported"):
+    """Of the non-Gaussian noises dae_loss takes Laplace only (below):
+    uniform noise raises, as in JAX (cardae.py:281)."""
+    jm, p, tm = _build("MLPResARDAE")
+    with pytest.raises(NotImplementedError):
+        jcd.dae_loss(jm, p, jax.random.PRNGKey(0), np.zeros((2, D), np.float32),
+                     0.1, noise_type="uniform")
+    with pytest.raises(NotImplementedError):
         tcd.dae_loss(tm, torch.zeros(2, D), 0.1, eps=torch.zeros(2, D),
-                     noise_type="laplace")
+                     noise_type="uniform")
+
+
+@pytest.mark.parametrize("name", list(CTORS))
+def test_dae_loss_laplace(name):
+    """dae_loss with Laplace noise, JAX's draw injected, and every
+    parameter gradient, for each constructor."""
+    from ardae_tpu.core.rng import sample_laplace
+
+    jm, p, tm = _build(name)
+    x, std = rand(2, N, D), rand(3, N, 1)
+    key = jax.random.PRNGKey(5)
+    want, jgrads = jax.value_and_grad(
+        lambda q: jcd.dae_loss(jm, q, key, x, std, "laplace"))(p)
+    got = tcd.dae_loss(tm, t(x), t(std), eps=t(sample_laplace(key, x.shape)),
+                       noise_type="laplace")
+    got.backward()
+    close(got, want, 1e-5, 0.0)
+    _check_grads(tm, jgrads)
 
 
 def _updates(before, module, jparams_after, jparams_before):
