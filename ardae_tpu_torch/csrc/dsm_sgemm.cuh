@@ -1,6 +1,7 @@
 // Shared core of the hand-written DSM kernels (fused_dsm.cu and
-// fused_dsm_grad.cu), fp32-accurate, for NVIDIA Hopper (sm_90a):
-//  * one tiled GEMM on the tensor cores, 3xTF32: each fp32 operand x is
+// fused_dsm_grad.cu) for NVIDIA Hopper (sm_90a):
+//  * one tiled GEMM on the tensor cores in one of two precisions, a
+//    template parameter (Prec). PREC_F32, fp32-accurate, 3xTF32: each fp32 operand x is
 //    split in registers as hi = tf32(x), lo = tf32(x - hi) (rounded as
 //    cvt.rna.tf32.f32 rounds), and warp-level mma.sync.m16n8k8 TF32
 //    products lo*hi + hi*lo + hi*hi, small terms first, sum into an fp32
@@ -10,7 +11,12 @@
 //    cp.async (16-byte copies where an operand's rows are 16-byte aligned,
 //    else 4-byte copies), ragged edges zero-filled on load and masked on
 //    store; its epilogue is a functor, so each chain fuses its own bias /
-//    activation / product, fed row by row from shared memory;
+//    activation / product, fed row by row from shared memory. PREC_BF16
+//    (the TPU grad kernels' bf16 compute mode): the same tiles, ring and
+//    epilogue, but each fp32 operand is rounded to bf16 (to nearest even,
+//    cvt.rn.bf16x2.f32, two k a register) as its fragment is read from
+//    shared memory, and one mma.sync.m16n8k16 bf16 product a fragment
+//    sums into the same fp32 accumulators (989 TFLOP/s bf16 peak);
 //  * deterministic reductions without atomics: split-K partials summed in a
 //    fixed order, column sums over fixed row segments, fixed-grid block sums;
 //  * the activations phi and the factors phi' and phi''/phi' taken from the
@@ -38,6 +44,8 @@ constexpr int COLSUM_COLS = 32;     // a column-sum block: 32 columns (a warp
 constexpr int COLSUM_LANES = 8;     // reads 128 B of a row) x 8 row lanes
 
 enum Act { ACT_SOFTPLUS = 0, ACT_RELU = 1, ACT_TANH = 2 };
+// the products' precision: fp32-accurate (3xTF32) or operands in bf16
+enum Prec { PREC_F32 = 0, PREC_BF16 = 1 };
 
 __device__ __forceinline__ float act_fwd(int act, float v) {
   if (act == ACT_SOFTPLUS) return fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
@@ -198,6 +206,28 @@ __device__ __forceinline__ void mma_tf32_first(float (&d)[4],
         "f"(z));
 }
 
+// Two fp32 values rounded to the nearest bf16 (ties to even) and packed in
+// one register, lo in the low half: the lower k of a fragment's pair
+// (cvt.rn.bf16x2.f32 puts its first source in the upper half).
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d = a (16x16, row) * b (16x8, col) + d in bf16, fp32 accumulate. Lane
+// (g = lane / 4, t = lane % 4) holds a = {(g, 2t..2t+1), (g + 8, 2t..2t+1),
+// (g, 2t+8..2t+9), (g + 8, 2t+8..2t+9)} and b = {(2t..2t+1, g), (2t+8..2t+9,
+// g)}, (row, k) and (k, col) pairs, the lower k in the low half; d as the
+// TF32 product's (rows g and g + 8, columns 2t and 2t + 1).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // acc[m, n] = sum_k A(m, k) * B(k, n) over this split's k range (blockIdx.z),
 // then epi.store(m, n, acc, epi.load(m, n)) for every (m, n) inside the edge.
 // A(m, k) = A_KC ? A[m*lda + k] : A[k*lda + m]
@@ -209,8 +239,11 @@ __device__ __forceinline__ void mma_tf32_first(float (&d)[4],
 // The tensor cores round their fp32 accumulation toward zero, which over a
 // long k range (a weight gradient's ~5,000 rows a split) biases the sum: so
 // each k-tile's 12 products a term go into a fresh accumulator, added to the
-// running sum with a round-to-nearest fp32 add.
-template <bool A_KC, bool B_KC, class Epi>
+// running sum with a round-to-nearest fp32 add. PREC_BF16 reads the same
+// shared-memory words, k = 2t, 2t + 1, 2t + 8 and 2t + 9 of each 16-deep
+// step (the bf16 fragment's own k order), rounds them to bf16 and takes 2
+// products a k-tile into the fresh accumulator.
+template <bool A_KC, bool B_KC, class Epi, int PREC>
 __global__ void __launch_bounds__(NT, 1)
 sgemm_kernel(int M, int N, int K, int k_per_split,
              const float* __restrict__ A, int lda, bool a_vec,
@@ -264,62 +297,122 @@ sgemm_kernel(int M, int N, int K, int k_per_split,
     const float* as = As + (kt % STAGES) * A_FL;
     const float* bs = Bs + (kt % STAGES) * B_FL;
     float part[MI][NJ][4];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 8) {
-      const int k0 = kk + 2 * t;   // physical k of slot t; k0 + 1 is slot t + 4
-      uint32_t bh[NJ][2], bl[NJ][2], ah[MI][4], al[MI][4];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = wn + 8 * j + g;
-        float b[2];
-        if (B_KC) {
-          const float2 v = *reinterpret_cast<const float2*>(&bs[c * KC_LD + k0]);
-          b[0] = v.x;
-          b[1] = v.y;
-        } else {
-          b[0] = bs[k0 * B_LD + c];
-          b[1] = bs[(k0 + 1) * B_LD + c];
-        }
-#pragma unroll
-        for (int q = 0; q < 2; ++q) split_tf32(b[q], bh[j][q], bl[j][q]);
-      }
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        // a0 (row g, slot t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-        float a[4];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = wm + 16 * i + g + 8 * h;
-          if (A_KC) {
-            const float2 v = *reinterpret_cast<const float2*>(&as[r * KC_LD + k0]);
-            a[h] = v.x;
-            a[h + 2] = v.y;
-          } else {
-            a[h] = as[k0 * A_LD + r];
-            a[h + 2] = as[(k0 + 1) * A_LD + r];
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) split_tf32(a[q], ah[i][q], al[i][q]);
-      }
-      // small terms first; each pass is 16 independent products
+    if constexpr (PREC == PREC_BF16) {
 #pragma unroll
       for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) part[i][j][q] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        const int k0 = kk + 2 * t;   // register 0 holds k0, k0 + 1; 1 (B) or
+                                     // 2, 3 (A) hold k0 + 8, k0 + 9
+        uint32_t bb[NJ][2], ab[MI][4];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          if (kk == 0)
-            mma_tf32_first(part[i][j], al[i], bh[j]);
-          else
-            mma_tf32(part[i][j], al[i], bh[j]);
+          const int c = wn + 8 * j + g;
+          float b[4];
+          if (B_KC) {
+            const float2 lo = *reinterpret_cast<const float2*>(&bs[c * KC_LD + k0]);
+            const float2 hi = *reinterpret_cast<const float2*>(&bs[c * KC_LD + k0 + 8]);
+            b[0] = lo.x;
+            b[1] = lo.y;
+            b[2] = hi.x;
+            b[3] = hi.y;
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              b[q] = bs[(k0 + (q & 1) + 8 * (q >> 1)) * B_LD + c];
+          }
+          bb[j][0] = pack_bf16x2(b[0], b[1]);
+          bb[j][1] = pack_bf16x2(b[2], b[3]);
         }
 #pragma unroll
-      for (int i = 0; i < MI; ++i)
+        for (int i = 0; i < MI; ++i)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) mma_tf32(part[i][j], ah[i], bl[j]);
+          for (int h = 0; h < 2; ++h) {
+            // registers h (row g + 8h, k0 pair) and h + 2 (its k0 + 8 pair)
+            const int r = wm + 16 * i + g + 8 * h;
+            float a[4];
+            if (A_KC) {
+              const float2 lo = *reinterpret_cast<const float2*>(&as[r * KC_LD + k0]);
+              const float2 hi = *reinterpret_cast<const float2*>(&as[r * KC_LD + k0 + 8]);
+              a[0] = lo.x;
+              a[1] = lo.y;
+              a[2] = hi.x;
+              a[3] = hi.y;
+            } else {
 #pragma unroll
-      for (int i = 0; i < MI; ++i)
+              for (int q = 0; q < 4; ++q)
+                a[q] = as[(k0 + (q & 1) + 8 * (q >> 1)) * A_LD + r];
+            }
+            ab[i][h] = pack_bf16x2(a[0], a[1]);
+            ab[i][h + 2] = pack_bf16x2(a[2], a[3]);
+          }
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) mma_tf32(part[i][j], ah[i], bh[j]);
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) mma_bf16(part[i][j], ab[i], bb[j]);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 8) {
+        const int k0 = kk + 2 * t;   // physical k of slot t; k0 + 1 is slot t + 4
+        uint32_t bh[NJ][2], bl[NJ][2], ah[MI][4], al[MI][4];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int c = wn + 8 * j + g;
+          float b[2];
+          if (B_KC) {
+            const float2 v = *reinterpret_cast<const float2*>(&bs[c * KC_LD + k0]);
+            b[0] = v.x;
+            b[1] = v.y;
+          } else {
+            b[0] = bs[k0 * B_LD + c];
+            b[1] = bs[(k0 + 1) * B_LD + c];
+          }
+#pragma unroll
+          for (int q = 0; q < 2; ++q) split_tf32(b[q], bh[j][q], bl[j][q]);
+        }
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          // a0 (row g, slot t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+          float a[4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wm + 16 * i + g + 8 * h;
+            if (A_KC) {
+              const float2 v = *reinterpret_cast<const float2*>(&as[r * KC_LD + k0]);
+              a[h] = v.x;
+              a[h + 2] = v.y;
+            } else {
+              a[h] = as[k0 * A_LD + r];
+              a[h + 2] = as[(k0 + 1) * A_LD + r];
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) split_tf32(a[q], ah[i][q], al[i][q]);
+        }
+        // small terms first; each pass is 16 independent products
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            if (kk == 0)
+              mma_tf32_first(part[i][j], al[i], bh[j]);
+            else
+              mma_tf32(part[i][j], al[i], bh[j]);
+          }
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) mma_tf32(part[i][j], ah[i], bl[j]);
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) mma_tf32(part[i][j], ah[i], bh[j]);
+      }
     }
 #pragma unroll
     for (int i = 0; i < MI; ++i)
@@ -514,21 +607,22 @@ bool vec_ok(const float* p, int ld) {
   return ld % 4 == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// launches over cdiv(K, split_len(K, splits)) <= splits splits. The ring
-// needs more than the 48 KB of static shared memory: the first launch of
-// each instantiation raises its limit (the attribute's error, if any,
-// surfaces in the entry point's cudaGetLastError).
-template <bool A_KC, bool B_KC, class Epi>
+// launches over cdiv(K, split_len(K, splits)) <= splits splits, its
+// products in PREC. The ring needs more than the 48 KB of static shared
+// memory: the first launch of each instantiation raises its limit (the
+// attribute's error, if any, surfaces in the entry point's
+// cudaGetLastError).
+template <bool A_KC, bool B_KC, int PREC = PREC_F32, class Epi>
 void sgemm(int M, int N, int K, int splits, const float* A, int lda,
            const float* B, int ldb, const Epi& epi, cudaStream_t stream) {
   constexpr int smem = sgemm_smem_bytes(A_KC, B_KC);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      sgemm_kernel<A_KC, B_KC, Epi>,
+      sgemm_kernel<A_KC, B_KC, Epi, PREC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   (void)attr;
   const int kps = split_len(K, splits);
   dim3 grid(cdiv(N, BN), cdiv(M, BM), cdiv(K, kps) > 0 ? cdiv(K, kps) : 1);
-  sgemm_kernel<A_KC, B_KC, Epi><<<grid, NT, smem, stream>>>(
+  sgemm_kernel<A_KC, B_KC, Epi, PREC><<<grid, NT, smem, stream>>>(
       M, N, K, kps, A, lda, vec_ok(A, lda), B, ldb, vec_ok(B, ldb), epi);
 }
 
@@ -548,10 +642,11 @@ int wgrad_splits(int M, int N, int K) {
 
 // the split-K partials of dW (out x in) = sum over rows of A^T B, with A
 // (rows, out) and B (rows, in) row-major: S partials written to P
+template <int PREC = PREC_F32>
 void wgrad_partials(int out, int in, int rows, int S, const float* A, int lda,
                     const float* B, int ldb, float* P, cudaStream_t stream) {
   const StoreEpi st = {P, in, (long long)out * in};
-  sgemm<false, false>(out, in, rows, S, A, lda, B, ldb, st, stream);
+  sgemm<false, false, PREC>(out, in, rows, S, A, lda, B, ldb, st, stream);
 }
 
 int colsum_seg(int n) { return cdiv(n, n < COLSUM_SEGS ? n : COLSUM_SEGS); }

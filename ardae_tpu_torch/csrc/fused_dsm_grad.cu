@@ -1,8 +1,20 @@
 // Fused second-order denoising-score-matching loss of the GRADIENT-style
 // conditional AR-DAE (score = -d e / d xbar of a scalar energy MLP), loss
-// and every parameter gradient, fp32, for NVIDIA Hopper (sm_90a).
+// and every parameter gradient, for NVIDIA Hopper (sm_90a), in either of the
+// TPU kernels' compute modes (the entry points' prec argument):
+//   PREC_F32   every product fp32-accurate (3xTF32);
+//   PREC_BF16  rounded to bf16 where the TPU row-tile kernel's
+//              compute_dtype="bfloat16" (its default) rounds: each
+//              product's operands (the weight matrices, w_out and sigma's
+//              weight, the activations, the tangent direction w, the
+//              tangent and adjoint chains), the stored pre-activations and
+//              tangent products that phi, phi' and phi'' are taken from,
+//              and the primal adjoints that db, sigma's column and
+//              d ctx_l0 sum; fp32 accumulation; biases, sigma, eps, the ctx
+//              rows, the loss and every gradient sum stay fp32 (the bf16
+//              epilogues below say where each rounding sits).
 //
-// Replaces both Pallas TPU layouts of this one function:
+// Replaces both Pallas TPU layouts of this one function, in both modes:
 //   ardae_tpu/ops/fused_dsm_grad.py:114  _kernel (row tiles, (n, h) ctx rows)
 //   ardae_tpu/ops/fused_dsm_grad2.py:90  _kernel (item-aligned grid, (bsz, h)
 //                                                 ctx, unnormalised tangent)
@@ -31,7 +43,8 @@
 //        d w_out = sum_rows tu_L-1,  d b_out = 0.
 // phi, phi' and phi''/phi' come from the stored post-activation u (softplus:
 // sigmoid = 1 - exp(-u), 1 - sigmoid = exp(-u); relu: u > 0, 0; tanh: 1 - u^2,
-// -2u), so no pre-activation is stored.
+// -2u), so no pre-activation is stored (the bf16 mode keeps bf16(z_k) only
+// until step 2, below).
 //
 // Design on this card (what bounds it, and what the design does about it):
 //  * The products bound it. At the implicit-conv line (n = 80,000, d = 32,
@@ -45,6 +58,17 @@
 //    training), which 3xTF32 keeps and plain TF32 or bf16 would not. The
 //    TPU kernels recomputed step 2's chain in step 5; here the forward
 //    keeps it (d_k), which saves one pass.
+//  * The bf16 mode does the same 0.192 + 0.384 TFLOP an update at 989
+//    TFLOP/s bf16: about 0.19 + 0.39 ms as its operations bound. It takes
+//    one mma.sync.m16n8k16 bf16 product a fragment instead of 3xTF32's
+//    three m16n8k8 ones (each operand rounded once, to nearest even, as its
+//    fragment is read), so its products issue about 6x fewer tensor-core
+//    instructions. Everything else is the fp32 mode's: the fp32 workspace
+//    and its traffic (below), the ring, the reductions, and epilogues that
+//    add only the roundings and a write of bf16(z) and of the tangent
+//    input below l0, so the bf16 mode is bound by that traffic and the
+//    short launches sooner than by its products. Storing the workspace in
+//    bf16, and wgmma with TMA, are what would move it toward its bound.
 //  * No block can hold a row tile's whole chain (a (128, 256) fp32 tile is
 //    128 KB of 227 KB), so each layer of each chain is one launch of the
 //    shared tensor-core GEMM of dsm_sgemm.cuh (mma.sync m16n8k8 TF32, each
@@ -68,6 +92,8 @@
 //
 // Plain C interface, loaded with ctypes; every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
+
+#include <type_traits>
 
 #include "dsm_sgemm.cuh"
 
@@ -126,6 +152,153 @@ struct RevEpi {
   }
 };
 
+// ---- the bf16 mode's epilogues and kernels ----
+// They round where the TPU row-tile kernel rounds in its bf16 mode
+// (ardae_tpu/ops/fused_dsm_grad.py:135-256): the pre-activations z and
+// the tangent products tz are stored in bf16, and phi, phi' and phi'' are
+// taken from those stored values; the weight matrices (w_out and sigma's
+// weight too), the forward and tangent inputs of each product and the
+// primal adjoints Ap (summed into db, sigma's column and d ctx_l0 as
+// rounded) are rounded; z, tz and every product accumulate in fp32. The
+// forward's next-layer input is phi of the unrounded z, and below l0 the
+// next tangent input is phi'(z) of the unrounded tz, while the reverse
+// takes both from the stored values: two values each, so the forward
+// keeps bf16(z) in the d_k buffer until step 2 replaces it, and the
+// tangent chain below l0 passes its input through ap0 / ap1. (The
+// item-aligned TPU kernel, fused_dsm_grad2.py:90, rounds a few values
+// otherwise in its bf16 mode; among them, it keeps sigma's weight in
+// fp32, takes l0's tangent factors from the unrounded z and tz, takes the
+// next tangent input from the unrounded tz above l0 too, and scales its
+// tangent by N.)
+
+// x rounded to the nearest bf16 (ties to even), back in fp32
+__device__ __forceinline__ float bf16_round(float x) {
+  unsigned short b;
+  asm("cvt.rn.bf16.f32 %0, %1;\n" : "=h"(b) : "f"(x));
+  return __uint_as_float((uint32_t)b << 16);
+}
+
+// phi'(z) from the pre-activation z
+__device__ __forceinline__ float act_grad_from_pre(int act, float z) {
+  if (act == ACT_SOFTPLUS) return 1.f / (1.f + expf(-z));
+  if (act == ACT_RELU) return z > 0.f ? 1.f : 0.f;
+  const float t = tanhf(z);
+  return 1.f - t * t;
+}
+
+// forward: z = acc + sigma * bf16(w_sig) + bias + ctx[m / ssz] (the TPU
+// kernel's order); u = phi(z) (the next layer's input), zb = bf16(z)
+struct FwdEpiBF16 {
+  float* u;
+  float* zb;
+  int ld;
+  const float* bias;
+  const float* sigma;     // as FwdEpi's: null except on the split layer
+  const float* wsig;
+  int wsig_ld;
+  const float* ctx;
+  int ctx_ld, ssz;
+  int act;
+  struct In { float b, sw, cx; };
+  __device__ __forceinline__ In load(int m, int n) const {
+    In in = {bias[n], 0.f, 0.f};
+    if (wsig) in.sw = sigma[m] * bf16_round(wsig[(long long)n * wsig_ld]);
+    if (ctx) in.cx = ctx[(long long)(m / ssz) * ctx_ld + n];
+    return in;
+  }
+  __device__ __forceinline__ void store(int m, int n, float v, In in) const {
+    if (wsig) v += in.sw;
+    v += in.b;
+    if (ctx) v += in.cx;
+    const long long i = (long long)m * ld + n;
+    u[i] = act_fwd(act, v);
+    zb[i] = bf16_round(v);
+  }
+};
+
+// input gradient: d = acc * phi'(zb), zb read from d's own place; and the
+// reverse's u = phi(zb) in place of the forward's
+struct DhEpiBF16 {
+  float* delta;
+  float* u;
+  int ld;
+  int act;
+  struct In { float zb; };
+  __device__ __forceinline__ In load(int m, int n) const {
+    return {delta[(long long)m * ld + n]};
+  }
+  __device__ __forceinline__ void store(int m, int n, float v, In in) const {
+    const long long i = (long long)m * ld + n;
+    delta[i] = v * act_grad_from_pre(act, in.zb);
+    u[i] = act_fwd(act, in.zb);
+  }
+};
+
+// d = bf16(w_out[c]) * phi'(zb) and u = phi(zb) for the top hidden layer
+__global__ void top_delta_bf16_kernel(float* __restrict__ u,
+                                      const float* __restrict__ w_out,
+                                      long long total, int h, int act,
+                                      float* __restrict__ delta) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const float zb = delta[i];
+  delta[i] = bf16_round(w_out[i % h]) * act_grad_from_pre(act, zb);
+  u[i] = act_fwd(act, zb);
+}
+
+// tangent: tzb = bf16(tz = acc); tu = bf16(phi'(zb) * tzb), the reverse's
+// tangent input (and the next layer's from l0 on); below l0, tnext =
+// phi'(zb) * tz, the next layer's; c = d * (phi''/phi')(zb) * tzb, rounded
+// on the top layer, where it is the primal adjoint Ap itself
+struct TangentEpiBF16 {
+  float* tu;
+  float* tnext;
+  float* c;
+  const float* u;
+  const float* delta;
+  int ld;
+  int act;
+  bool round_c;
+  struct In { float u, delta; };
+  __device__ __forceinline__ In load(int m, int n) const {
+    const long long i = (long long)m * ld + n;
+    return {u[i], delta[i]};
+  }
+  __device__ __forceinline__ void store(int m, int n, float v, In in) const {
+    const long long i = (long long)m * ld + n;
+    const float f = act_grad_from_out(act, in.u), tzb = bf16_round(v);
+    tu[i] = bf16_round(f * tzb);
+    if (tnext) tnext[i] = f * v;
+    const float cc = in.delta * act_curv_from_out(act, in.u) * tzb;
+    c[i] = round_c ? bf16_round(cc) : cc;
+  }
+};
+
+// reverse: Ap = bf16(acc * phi'(zb) + c)
+struct RevEpiBF16 {
+  float* ap;
+  const float* u;
+  const float* c;
+  int ld;
+  int act;
+  struct In { float u, c; };
+  __device__ __forceinline__ In load(int m, int n) const {
+    const long long i = (long long)m * ld + n;
+    return {u[i], c[i]};
+  }
+  __device__ __forceinline__ void store(int m, int n, float v, In in) const {
+    ap[(long long)m * ld + n] =
+        bf16_round(v * act_grad_from_out(act, in.u) + in.c);
+  }
+};
+
+// x[i] *= g[0]
+__global__ void scale_kernel(float* __restrict__ x, long long total,
+                             const float* __restrict__ g) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < total) x[i] *= g[0];
+}
+
 // d[r, c] = w_out[c] * phi'(z) for the top hidden layer, from u
 __global__ void top_delta_kernel(const float* __restrict__ u,
                                  const float* __restrict__ w_out, long long total,
@@ -147,7 +320,7 @@ __global__ void sumsq_partial_kernel(const float* __restrict__ x,
   if (threadIdx.x == 0) partial[blockIdx.x] = acc;
 }
 
-// w = -2 * gout * sigma * R / N
+// w = -2 * gout * sigma * R / N; gout = 1 where g is null
 __global__ void tangent_seed_kernel(const float* __restrict__ R,
                                     const float* __restrict__ sigma,
                                     const float* __restrict__ g, long long total,
@@ -155,8 +328,27 @@ __global__ void tangent_seed_kernel(const float* __restrict__ R,
                                     float* __restrict__ w) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
-  w[i] = -2.f * g[0] * sigma[i / d] * R[i] * inv_total;
+  w[i] = -2.f * (g ? g[0] : 1.f) * sigma[i / d] * R[i] * inv_total;
 }
+
+// Forward, steps 1-3, and backward, steps 4-5, with their products in PREC;
+// the arguments are the entry points' below.
+template <int PREC>
+int grad_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
+             const float* xbar, const float* eps, const float* sigma,
+             const float* ctx_l0, int ctx_ld, const float* const* W,
+             const float* const* B, const int* in_dims, const int* out_dims,
+             const int* ldw, float* acts, float* deltas, int h, float* R,
+             float* scratch, float* loss, cudaStream_t stream);
+
+template <int PREC>
+int grad_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
+             const float* xbar, const float* sigma, const float* R,
+             const float* g, const float* const* W, const int* in_dims,
+             const int* out_dims, const int* ldw, const float* acts,
+             const float* deltas, int h, float* const* dW, float* const* dB,
+             float* dctx, int ctx_ld, float* tan0, float* tans, float* curvs,
+             float* ap0, float* ap1, float* scratch, cudaStream_t stream);
 
 }  // namespace
 
@@ -181,18 +373,61 @@ long long fused_dsm_grad_scratch_floats(int n, int n_layers,
   return pack_floats(n_layers, in_dims, out_dims) + need;
 }
 
-// Forward, steps 1-3. W[k] is (out_dims[k], ldw[k]) row-major, B[k] is
-// (out_dims[k],); the hidden layers are h wide (out_dims[k] == h, k < L-1)
-// and W[L-1] is w_out (1, h). Layer l0 reads sigma's weight from column
-// in_dims[l0] of W[l0] and adds ctx_l0[row / ssz]. acts, deltas: (L-1)
-// blocks of n x h floats (u_k+1 and d_k); R: (n, d); loss: 1 float.
+// Forward, steps 1-3, its products in prec (PREC_F32 0, PREC_BF16 1; any
+// other value returns cudaErrorInvalidValue and launches nothing). W[k] is
+// (out_dims[k], ldw[k]) row-major, B[k] is (out_dims[k],); the hidden
+// layers are h wide (out_dims[k] == h, k < L-1) and W[L-1] is w_out (1,
+// h). Layer l0 reads sigma's weight from column in_dims[l0] of W[l0] and
+// adds ctx_l0[row / ssz]. acts, deltas: (L-1) blocks of n x h floats (u_k+1
+// and d_k); R: (n, d); loss: 1 float.
 int fused_dsm_grad_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
-                       const float* xbar, const float* eps, const float* sigma,
-                       const float* ctx_l0, int ctx_ld, const float* const* W,
-                       const float* const* B, const int* in_dims,
-                       const int* out_dims, const int* ldw, float* acts,
-                       float* deltas, int h, float* R, float* scratch,
-                       float* loss, cudaStream_t stream) {
+                       int prec, const float* xbar, const float* eps,
+                       const float* sigma, const float* ctx_l0, int ctx_ld,
+                       const float* const* W, const float* const* B,
+                       const int* in_dims, const int* out_dims, const int* ldw,
+                       float* acts, float* deltas, int h, float* R,
+                       float* scratch, float* loss, cudaStream_t stream) {
+  auto run = prec == PREC_F32 ? grad_fwd<PREC_F32>
+             : prec == PREC_BF16 ? grad_fwd<PREC_BF16> : nullptr;
+  if (!run) return (int)cudaErrorInvalidValue;
+  return run(n, d, ssz, n_layers, l0, act, xbar, eps, sigma, ctx_l0, ctx_ld,
+             W, B, in_dims, out_dims, ldw, acts, deltas, h, R, scratch, loss,
+             stream);
+}
+
+// Backward, steps 4-5, every gradient scaled by the upstream cotangent g
+// (1 float on the device), its products in prec (as the forward's). dW[k]
+// and dB[k] are laid out like W[k] and B[k] (dW[l0] includes sigma's
+// column; dB[L-1] is set to 0); dctx: (n / ssz, ctx_ld). tan0: (n, d);
+// tans, curvs: (L-1) blocks of n x h (tu_k+1 and c_k); ap0, ap1: n x h each.
+int fused_dsm_grad_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
+                       int prec, const float* xbar, const float* sigma,
+                       const float* R, const float* g, const float* const* W,
+                       const int* in_dims, const int* out_dims, const int* ldw,
+                       const float* acts, const float* deltas, int h,
+                       float* const* dW, float* const* dB, float* dctx,
+                       int ctx_ld, float* tan0, float* tans, float* curvs,
+                       float* ap0, float* ap1, float* scratch,
+                       cudaStream_t stream) {
+  auto run = prec == PREC_F32 ? grad_bwd<PREC_F32>
+             : prec == PREC_BF16 ? grad_bwd<PREC_BF16> : nullptr;
+  if (!run) return (int)cudaErrorInvalidValue;
+  return run(n, d, ssz, n_layers, l0, act, xbar, sigma, R, g, W, in_dims,
+             out_dims, ldw, acts, deltas, h, dW, dB, dctx, ctx_ld, tan0, tans,
+             curvs, ap0, ap1, scratch, stream);
+}
+
+}  // extern "C"
+
+namespace {
+
+template <int PREC>
+int grad_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
+             const float* xbar, const float* eps, const float* sigma,
+             const float* ctx_l0, int ctx_ld, const float* const* W,
+             const float* const* B, const int* in_dims, const int* out_dims,
+             const int* ldw, float* acts, float* deltas, int h, float* R,
+             float* scratch, float* loss, cudaStream_t stream) {
   const int top = n_layers - 2;
   const long long nh = (long long)n * h;
   float* w_l0 = scratch;
@@ -204,9 +439,15 @@ int fused_dsm_grad_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
   const float* hin = xbar;
   int hin_ld = d;
   for (int k = 0; k <= top; ++k) {
-    FwdEpi ep = {};
-    ep.C = acts + k * nh;
-    ep.ldc = h;
+    std::conditional_t<PREC == PREC_BF16, FwdEpiBF16, FwdEpi> ep = {};
+    if constexpr (PREC == PREC_BF16) {
+      ep.u = acts + k * nh;
+      ep.zb = deltas + k * nh;   // bf16(z_k) until step 2
+      ep.ld = h;
+    } else {
+      ep.C = acts + k * nh;
+      ep.ldc = h;
+    }
     ep.bias = B[k];
     ep.act = act;
     if (k == l0) {
@@ -217,23 +458,34 @@ int fused_dsm_grad_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
       ep.ctx_ld = ctx_ld;
       ep.ssz = ssz;
     }
-    sgemm<true, true>(n, out_dims[k], in_dims[k], 1, hin, hin_ld, wmat(k),
-                      wld(k), ep, stream);
+    sgemm<true, true, PREC>(n, out_dims[k], in_dims[k], 1, hin, hin_ld,
+                            wmat(k), wld(k), ep, stream);
     hin = acts + k * nh;
     hin_ld = h;
   }
-  // 2. input-gradient chain d_k, seeded by w_out without a GEMM
-  top_delta_kernel<<<cdiv(nh, 256), 256, 0, stream>>>(
-      acts + top * nh, W[n_layers - 1], nh, h, act, deltas + top * nh);
+  // 2. input-gradient chain d_k, seeded by w_out without a GEMM (bf16: from
+  // bf16(z_k), and u_k+1 becomes phi(bf16(z_k)) for the backward)
+  if constexpr (PREC == PREC_BF16)
+    top_delta_bf16_kernel<<<cdiv(nh, 256), 256, 0, stream>>>(
+        acts + top * nh, W[n_layers - 1], nh, h, act, deltas + top * nh);
+  else
+    top_delta_kernel<<<cdiv(nh, 256), 256, 0, stream>>>(
+        acts + top * nh, W[n_layers - 1], nh, h, act, deltas + top * nh);
   for (int k = top; k >= 1; --k) {
-    const DhEpi ep = {deltas + (k - 1) * nh, h, acts + (k - 1) * nh, h, act};
-    sgemm<true, false>(n, in_dims[k], out_dims[k], 1, deltas + k * nh, h,
-                       wmat(k), wld(k), ep, stream);
+    if constexpr (PREC == PREC_BF16) {
+      const DhEpiBF16 ep = {deltas + (k - 1) * nh, acts + (k - 1) * nh, h, act};
+      sgemm<true, false, PREC>(n, in_dims[k], out_dims[k], 1, deltas + k * nh,
+                               h, wmat(k), wld(k), ep, stream);
+    } else {
+      const DhEpi ep = {deltas + (k - 1) * nh, h, acts + (k - 1) * nh, h, act};
+      sgemm<true, false, PREC>(n, in_dims[k], out_dims[k], 1, deltas + k * nh,
+                               h, wmat(k), wld(k), ep, stream);
+    }
   }
   // 3. g = d_0 @ W_0, R = eps - sigma * g, loss = sum(R^2) / N
   const ResidEpi ep = {R, sigma, eps, d};
-  sgemm<true, false>(n, d, out_dims[0], 1, deltas, h, wmat(0), wld(0), ep,
-                     stream);
+  sgemm<true, false, PREC>(n, d, out_dims[0], 1, deltas, h, wmat(0), wld(0),
+                           ep, stream);
   sumsq_partial_kernel<<<LOSS_BLOCKS, 256, 0, stream>>>(R, (long long)n * d,
                                                         scratch);
   loss_final_kernel<<<1, 256, 0, stream>>>(scratch, LOSS_BLOCKS,
@@ -241,20 +493,14 @@ int fused_dsm_grad_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
   return (int)cudaGetLastError();
 }
 
-// Backward, steps 4-5, every gradient scaled by the upstream cotangent g
-// (1 float on the device). dW[k] and dB[k] are laid out like W[k] and B[k]
-// (dW[l0] includes sigma's column; dB[L-1] is set to 0); dctx:
-// (n / ssz, ctx_ld). tan0: (n, d); tans, curvs: (L-1) blocks of n x h (tu_k+1
-// and c_k); ap0, ap1: n x h each.
-int fused_dsm_grad_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
-                       const float* xbar, const float* sigma, const float* R,
-                       const float* g, const float* const* W,
-                       const int* in_dims, const int* out_dims, const int* ldw,
-                       const float* acts, const float* deltas, int h,
-                       float* const* dW, float* const* dB, float* dctx,
-                       int ctx_ld, float* tan0, float* tans, float* curvs,
-                       float* ap0, float* ap1, float* scratch,
-                       cudaStream_t stream) {
+template <int PREC>
+int grad_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
+             const float* xbar, const float* sigma, const float* R,
+             const float* g, const float* const* W, const int* in_dims,
+             const int* out_dims, const int* ldw, const float* acts,
+             const float* deltas, int h, float* const* dW, float* const* dB,
+             float* dctx, int ctx_ld, float* tan0, float* tans, float* curvs,
+             float* ap0, float* ap1, float* scratch, cudaStream_t stream) {
   const int top = n_layers - 2;
   const long long nh = (long long)n * h;
   const long long total = (long long)n * d;
@@ -263,17 +509,31 @@ int fused_dsm_grad_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
   pack_cols(W[l0], out_dims[l0], in_dims[l0], ldw[l0], w_l0, stream);
   auto wmat = [&](int k) { return k == l0 ? (const float*)w_l0 : W[k]; };
   auto wld = [&](int k) { return k == l0 ? pack_ld(in_dims[k]) : ldw[k]; };
-  // 4. tangent chain along w
+  constexpr bool bf16 = PREC == PREC_BF16;
+  float* bufs[2] = {ap0, ap1};
+  // 4. tangent chain along w (bf16: at a unit cotangent, every gradient
+  // scaled by g at the end, as the TPU kernels' VJP scales them)
   tangent_seed_kernel<<<cdiv(total, 256), 256, 0, stream>>>(
-      R, sigma, g, total, d, 1.f / ((float)n * (float)d), tan0);
+      R, sigma, bf16 ? nullptr : g, total, d, 1.f / ((float)n * (float)d),
+      tan0);
   const float* tin = tan0;
   int tin_ld = d;
   for (int k = 0; k <= top; ++k) {
-    const TangentEpi ep = {tans + k * nh, curvs + k * nh, acts + k * nh,
-                           deltas + k * nh, h, act};
-    sgemm<true, true>(n, out_dims[k], in_dims[k], 1, tin, tin_ld, wmat(k),
-                      wld(k), ep, stream);
-    tin = tans + k * nh;
+    if constexpr (bf16) {
+      float* tnext = k < l0 ? bufs[k & 1] : nullptr;
+      const TangentEpiBF16 ep = {tans + k * nh,   tnext, curvs + k * nh,
+                                 acts + k * nh,   deltas + k * nh,
+                                 h,               act,   k == top};
+      sgemm<true, true, PREC>(n, out_dims[k], in_dims[k], 1, tin, tin_ld,
+                              wmat(k), wld(k), ep, stream);
+      tin = tnext ? tnext : tans + k * nh;
+    } else {
+      const TangentEpi ep = {tans + k * nh, curvs + k * nh, acts + k * nh,
+                             deltas + k * nh, h, act};
+      sgemm<true, true, PREC>(n, out_dims[k], in_dims[k], 1, tin, tin_ld,
+                              wmat(k), wld(k), ep, stream);
+      tin = tans + k * nh;
+    }
     tin_ld = h;
   }
   // the energy head: d w_out = sum_rows tu_L-1; b_out does not reach the score
@@ -281,7 +541,6 @@ int fused_dsm_grad_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
   cudaMemsetAsync(dB[n_layers - 1], 0, sizeof(float), stream);
   // 5. reverse over the primal (Ap) and tangent (d) chains
   const float* ap = curvs + top * nh;   // A_L-2 = 0: Ap_L-2 = c_L-2
-  float* bufs[2] = {ap0, ap1};
   for (int k = top; k >= 0; --k) {
     const int out = out_dims[k], in = in_dims[k];
     const float* u_in = k == 0 ? xbar : acts + (k - 1) * nh;
@@ -290,9 +549,9 @@ int fused_dsm_grad_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
     // dW[:, :in] = Ap^T u + d^T tu: both products' split-K partials, one
     // fixed-order sum
     const int S = wgrad_splits(out, in, n);
-    wgrad_partials(out, in, n, S, ap, h, u_in, in_ld, scratch, stream);
-    wgrad_partials(out, in, n, S, deltas + k * nh, h, t_in, in_ld,
-                   scratch + (long long)S * out * in, stream);
+    wgrad_partials<PREC>(out, in, n, S, ap, h, u_in, in_ld, scratch, stream);
+    wgrad_partials<PREC>(out, in, n, S, deltas + k * nh, h, t_in, in_ld,
+                         scratch + (long long)S * out * in, stream);
     reduce_splits(scratch, 2 * S, out, in, dW[k], ldw[k], 1, stream);
     colsum(ap, n, out, h, nullptr, scratch, dB[k], 1, stream);
     if (k == l0) {
@@ -301,13 +560,24 @@ int fused_dsm_grad_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
     }
     if (k > 0) {
       float* next = bufs[k & 1];
-      const RevEpi ep = {next, acts + (k - 1) * nh, curvs + (k - 1) * nh, h,
-                         act};
-      sgemm<true, false>(n, in, out, 1, ap, h, wmat(k), wld(k), ep, stream);
+      const std::conditional_t<bf16, RevEpiBF16, RevEpi> ep = {
+          next, acts + (k - 1) * nh, curvs + (k - 1) * nh, h, act};
+      sgemm<true, false, PREC>(n, in, out, 1, ap, h, wmat(k), wld(k), ep,
+                               stream);
       ap = next;
     }
+  }
+  if constexpr (bf16) {
+    auto scale = [&](float* x, long long count) {
+      scale_kernel<<<cdiv(count, 256), 256, 0, stream>>>(x, count, g);
+    };
+    for (int k = 0; k < n_layers; ++k) {
+      scale(dW[k], (long long)out_dims[k] * ldw[k]);
+      scale(dB[k], out_dims[k]);
+    }
+    scale(dctx, (long long)(n / ssz) * ctx_ld);
   }
   return (int)cudaGetLastError();
 }
 
-}  // extern "C"
+}  // namespace

@@ -15,15 +15,16 @@ eps0 is (bsz*nz, noise_dim) and eps (bsz*nz, z_dim), as every MNIST
 variant of the reference draws them (the toy reference's quirky
 (bsz*nz, nz, zdim) draw is the same law at nz 1, the drivers' default).
 
-Variants: ``ToyAuxIPVAE`` (auxmlp: MLP towers, Gaussian decoder),
-``MNISTAuxIPVAE`` (auxmnist: MLP towers, Bernoulli decoder, every layer
-xavier), ``MNISTConvAuxIPVAE`` (auxconv: two conv towers, each with its own
-trunk, all xavier; context cat(h0, h)) and ``MNISTResConvAuxIPVAE``
-(auxresconv(ct): one shared resconv trunk, spm4 logvar clamp on both heads;
-``clipped=True`` is auxresconv2, the -clip names: no clamp and a +1 floor on
-the z0 std). The JAX twins' ``clip_z0_logvar`` / ``clip_z_logvar`` and
-``do_xavier`` options are not ported: both drivers take only ``none`` for
-the clips, and the registry builds every aux IVAE with its xavier default.
+Variants: ``ToyAuxIPVAE`` (auxmlp: MLP towers, Gaussian decoder, its mean
+weight N(0, 1) under ``init_mode="gaussian"``), ``MNISTAuxIPVAE`` (auxmnist:
+MLP towers, Bernoulli decoder, every layer xavier under ``do_xavier``),
+``MNISTConvAuxIPVAE`` (auxconv: two conv towers, each with its own trunk,
+all xavier under ``do_xavier``; context cat(h0, h)) and
+``MNISTResConvAuxIPVAE`` (auxresconv(ct): one shared resconv trunk, spm4
+logvar clamp on both heads; ``clipped=True`` is auxresconv2, the -clip
+names: no clamp and a +1 floor on the z0 std). The MLP models'
+``clip_z0_logvar`` / ``clip_z_logvar`` clip their z0 and z heads (the
+drivers pass ``none``). Every option takes the JAX twin's name and default.
 """
 
 import torch
@@ -96,16 +97,18 @@ class _MLPAuxIPVAE(_AuxBase):
     hidden_mode = "cat"
 
     def __init__(self, input_dim, noise_dim, h_dim, z_dim, nonlinearity,
-                 num_hidden_layers, xavier):
+                 num_hidden_layers, xavier, clip_z0_logvar, clip_z_logvar):
         super().__init__()
         self.z_dim, self.noise_dim = z_dim, noise_dim
         mlp = dict(nonlinearity=nonlinearity,
                    num_hidden_layers=num_hidden_layers - 1,
                    use_nonlinearity_output=True, xavier=xavier)
         self.aux_main = MLP(input_dim, h_dim, h_dim, **mlp)
-        self.aux_reparam = NormalHead(h_dim, noise_dim, xavier=xavier)
+        self.aux_reparam = NormalHead(h_dim, noise_dim, clip=clip_z0_logvar,
+                                      xavier=xavier)
         self.enc_fc = MLP(input_dim + noise_dim, h_dim, h_dim, **mlp)
-        self.enc_reparam = NormalHead(h_dim, z_dim, xavier=xavier)
+        self.enc_reparam = NormalHead(h_dim, z_dim, clip=clip_z_logvar,
+                                      xavier=xavier)
 
     def aux_params(self, feats):
         h = self.aux_main(feats)
@@ -124,25 +127,28 @@ class ToyAuxIPVAE(_MLPAuxIPVAE):
     center_input = False
 
     def __init__(self, input_dim=2, noise_dim=2, h_dim=64, z_dim=2,
-                 nonlinearity="tanh", num_hidden_layers=1):
+                 nonlinearity="tanh", num_hidden_layers=1, init_mode="gaussian",
+                 clip_z0_logvar=None, clip_z_logvar=None):
         super().__init__(input_dim, noise_dim, h_dim, z_dim, nonlinearity,
-                         num_hidden_layers, xavier=False)
+                         num_hidden_layers, False, clip_z0_logvar, clip_z_logvar)
         self.decode = ToyDecoder(input_dim, z_dim, h_dim, nonlinearity,
-                                 num_hidden_layers)
+                                 num_hidden_layers, init_mode)
 
 
 class MNISTAuxIPVAE(_MLPAuxIPVAE):
     """auxmnist (reference models/ivae/auxmnist.py:47-428): towers over 2x
-    - 1, every layer xavier (reference :172-176), the MNIST decoder with
-    num_hidden_layers - 1 hidden layers."""
+    - 1, xavier under ``do_xavier`` (reference :172-176), the MNIST decoder
+    (always xavier) with num_hidden_layers - 1 hidden layers."""
 
     likelihood = "bernoulli"
     center_input = True
 
     def __init__(self, input_dim=784, noise_dim=100, h_dim=300, z_dim=32,
-                 nonlinearity="softplus", num_hidden_layers=2):
+                 nonlinearity="softplus", num_hidden_layers=2,
+                 clip_z0_logvar=None, clip_z_logvar=None, do_xavier=True):
         super().__init__(input_dim, noise_dim, h_dim, z_dim, nonlinearity,
-                         num_hidden_layers, xavier=True)
+                         num_hidden_layers, do_xavier, clip_z0_logvar,
+                         clip_z_logvar)
         self.decode = MNISTDecoder(input_dim, z_dim, h_dim, nonlinearity,
                                    num_hidden_layers - 1)
 
@@ -152,29 +158,30 @@ class MNISTAuxIPVAE(_MLPAuxIPVAE):
 
 class MNISTConvAuxIPVAE(_AuxBase):
     """auxconv (reference models/ivae/auxconv.py:50-423): two conv towers,
-    each running its own trunk on x, all xavier; the hidden1a context is
-    cat(h0, h) of the two 800-wide fc features."""
+    each running its own trunk on x, all xavier under ``do_xavier``; the
+    hidden1a context is cat(h0, h) of the two 800-wide fc features."""
 
     likelihood = "bernoulli"
     center_input = True
     hidden_mode = "cat"
 
     def __init__(self, input_height=28, input_channels=1, z0_dim=100, z_dim=32,
-                 nonlinearity="softplus"):
+                 nonlinearity="softplus", do_xavier=True):
         super().__init__()
         self.z_dim, self.noise_dim = z_dim, z0_dim
         self.afun = get_nonlinear_func(nonlinearity)
+        xav = do_xavier
         trunk = dict(input_height=input_height, input_channels=input_channels,
-                     nonlinearity=nonlinearity, xavier=True)
+                     nonlinearity=nonlinearity, xavier=xav)
         self.aux_trunk = ConvEncoderTrunk(**trunk)
         feat = 32 * self.aux_trunk.s ** 2
-        self.aux_fc = Linear(feat, CONV_FC, xavier=True)
-        self.aux_reparam = NormalHead(CONV_FC, z0_dim, xavier=True)
+        self.aux_fc = Linear(feat, CONV_FC, xavier=xav)
+        self.aux_reparam = NormalHead(CONV_FC, z0_dim, xavier=xav)
         self.enc_trunk = ConvEncoderTrunk(**trunk)
-        self.enc_fc = Linear(feat + z0_dim, CONV_FC, xavier=True)
-        self.enc_reparam = NormalHead(CONV_FC, z_dim, xavier=True)
+        self.enc_fc = Linear(feat + z0_dim, CONV_FC, xavier=xav)
+        self.enc_reparam = NormalHead(CONV_FC, z_dim, xavier=xav)
         self.decode = ConvDecoder(z_dim, input_height, input_channels,
-                                  nonlinearity, xavier=True)
+                                  nonlinearity, xavier=xav)
 
     def _sample_all(self, x, eps, noise_scale):
         # each tower runs its own trunk on x, once per item

@@ -5,9 +5,10 @@ The encoder rescales the pixels to 2x - 1 and runs its MLP trunk once per
 item; the first fc layer is split into ``fc_l0_inp`` (trunk features, once
 per item, broadcast over the nz samples) and ``fc_l0_eps`` (noise, per
 sample, no bias), the same function as one layer over the concatenation.
-``fc_out``'s weight is N(0, 1) (the twin's ``init_mode="gaussian"``, the
-one every registry entry uses). Only the decoder is xavier-initialised, its logit
-layer included (reference :233-238 applies weight_init to decode alone).
+``fc_out``'s weight is N(0, 1) under ``init_mode="gaussian"`` (the twin's
+default, which every registry entry uses), else the default init. Only the
+decoder is xavier-initialised, its logit layer included (reference
+:233-238 applies weight_init to decode alone).
 Module names follow the flax twin, so ``convert.py`` maps one tree onto the
 other.
 """
@@ -24,7 +25,8 @@ class MNISTConcatEncoder(nn.Module):
     num_hidden_layers + 1 (reference :227)."""
 
     def __init__(self, input_dim=784, noise_dim=100, h_dim=300, z_dim=32,
-                 nonlinearity="softplus", num_hidden_layers=2):
+                 nonlinearity="softplus", num_hidden_layers=2,
+                 init_mode="gaussian"):
         super().__init__()
         self.h_dim, self.z_dim = h_dim, z_dim
         self.afun = get_nonlinear_func(nonlinearity)
@@ -33,7 +35,8 @@ class MNISTConcatEncoder(nn.Module):
                               use_nonlinearity_output=True)
         self.fc_l0_inp = Linear(h_dim, h_dim)
         self.fc_l0_eps = Linear(noise_dim, h_dim, use_bias=False)
-        self.fc_out = Linear(h_dim, z_dim, normal_std=1.0)
+        self.fc_out = Linear(h_dim, z_dim,
+                             normal_std=1.0 if init_mode == "gaussian" else None)
 
     def forward(self, x, eps):
         """x (bsz, D), eps (bsz*nz, noise_dim) -> z (bsz, nz, z_dim)."""
@@ -66,11 +69,13 @@ class MNISTIPVAE(nn.Module):
     center_input = True
 
     def __init__(self, input_dim=784, noise_dim=100, h_dim=300, z_dim=32,
-                 nonlinearity="softplus", num_hidden_layers=1):
+                 nonlinearity="softplus", num_hidden_layers=1,
+                 init_mode="gaussian"):
         super().__init__()
         self.z_dim, self.noise_dim = z_dim, noise_dim
         self.encode = MNISTConcatEncoder(input_dim, noise_dim, h_dim, z_dim,
-                                         nonlinearity, num_hidden_layers + 1)
+                                         nonlinearity, num_hidden_layers + 1,
+                                         init_mode)
         self.decode = MNISTDecoder(input_dim, z_dim, h_dim, nonlinearity,
                                    num_hidden_layers)
 

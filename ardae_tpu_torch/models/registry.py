@@ -145,7 +145,8 @@ def build_vae_model(name, *, nchannels=1, nheight=28, z_dim=8, h_dim=300,
                      num_hidden_layers=n_layers, clip_logvar=clip_logvar)
     elif name == "auxconv":
         model = MNISTConvAuxVAE(input_height=nheight, input_channels=nchannels,
-                                z0_dim=n_dim, z_dim=z_dim, nonlinearity=nonlin)
+                                z0_dim=n_dim, z_dim=z_dim, nonlinearity=nonlin,
+                                do_xavier=False)
     elif name in ("auxresconv", "auxresconvct"):
         model = MNISTResConvAuxVAE(input_height=nheight, input_channels=nchannels,
                                    z0_dim=n_dim, z_dim=z_dim, c_dim=AUX_RESCONV_C,

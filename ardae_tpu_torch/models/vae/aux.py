@@ -21,10 +21,14 @@ from an explicit ``torch.Generator``.
 Variants: ``ToyAuxVAE`` (auxtoy), ``MNISTAuxVAE`` (auxmnist),
 ``MNISTConvAuxVAE`` (auxconv: three conv towers) and
 ``MNISTResConvAuxVAE`` (auxresconv(ct): one shared resconv trunk, spm4 on
-the z0 and z heads). The registry builds them all without xavier (the JAX
-registry's do_xavier=False; the reference driver passes it, vae.py:
-263-275), so the JAX twins' ``do_xavier`` / ``do_m5bias`` are not ported;
-only the decoders keep their own xavier law.
+the z0 and z heads). ``do_xavier`` makes the towers and heads
+xavier-uniform with zero biases; the MNIST decoder keeps its own xavier
+law either way, and the auxconv decoder follows ``do_xavier``.
+``do_m5bias`` shifts the auxconv decoder's logits by -5, and the toy
+decoder's mean weight is N(0, 1) under ``init_mode="gaussian"``. The
+defaults are the JAX twins' (do_xavier False for the MLP models, True for
+auxconv); the registry builds every one without xavier, as the JAX
+registry does (the reference driver passes it, vae.py:263-275).
 """
 
 import torch
@@ -64,18 +68,19 @@ class _MLPAuxVAE(_AuxVAE):
     heads; ``clip_logvar`` clips the z0 head only, as in the JAX twin."""
 
     def __init__(self, input_dim, noise_dim, h_dim, z_dim, nonlinearity,
-                 num_hidden_layers, clip_logvar):
+                 num_hidden_layers, clip_logvar, do_xavier):
         super().__init__()
         self.z_dim, self.noise_dim = z_dim, noise_dim
         mlp = dict(nonlinearity=nonlinearity,
                    num_hidden_layers=num_hidden_layers - 1,
-                   use_nonlinearity_output=True)
+                   use_nonlinearity_output=True, xavier=do_xavier)
         self.aux_main = MLP(input_dim, h_dim, h_dim, **mlp)
-        self.aux_reparam = NormalHead(h_dim, noise_dim, clip=clip_logvar)
+        self.aux_reparam = NormalHead(h_dim, noise_dim, clip=clip_logvar,
+                                      xavier=do_xavier)
         self.enc_fc = MLP(input_dim + noise_dim, h_dim, h_dim, **mlp)
-        self.enc_reparam = NormalHead(h_dim, z_dim)
+        self.enc_reparam = NormalHead(h_dim, z_dim, xavier=do_xavier)
         self.auxdec_fc = MLP(input_dim + z_dim, h_dim, h_dim, **mlp)
-        self.auxdec_reparam = NormalHead(h_dim, noise_dim)
+        self.auxdec_reparam = NormalHead(h_dim, noise_dim, xavier=do_xavier)
 
     def aux_params(self, feats):
         return self.aux_reparam(self.aux_main(feats))
@@ -97,9 +102,10 @@ class MNISTAuxVAE(_MLPAuxVAE):
     center_input = True
 
     def __init__(self, input_dim=784, noise_dim=100, h_dim=300, z_dim=32,
-                 nonlinearity="softplus", num_hidden_layers=2, clip_logvar=None):
+                 nonlinearity="softplus", num_hidden_layers=2, clip_logvar=None,
+                 do_xavier=False):
         super().__init__(input_dim, noise_dim, h_dim, z_dim, nonlinearity,
-                         num_hidden_layers, clip_logvar)
+                         num_hidden_layers, clip_logvar, do_xavier)
         self.decode = MNISTDecoder(input_dim, z_dim, h_dim, nonlinearity,
                                    num_hidden_layers - 1)
 
@@ -115,11 +121,12 @@ class ToyAuxVAE(_MLPAuxVAE):
     center_input = False
 
     def __init__(self, input_dim=2, noise_dim=2, h_dim=64, z_dim=2,
-                 nonlinearity="softplus", num_hidden_layers=1, clip_logvar=None):
+                 nonlinearity="softplus", num_hidden_layers=1, clip_logvar=None,
+                 do_xavier=False, init_mode="gaussian"):
         super().__init__(input_dim, noise_dim, h_dim, z_dim, nonlinearity,
-                         num_hidden_layers, clip_logvar)
+                         num_hidden_layers, clip_logvar, do_xavier)
         self.decode = ToyDecoder(input_dim, z_dim, h_dim, nonlinearity,
-                                 num_hidden_layers)
+                                 num_hidden_layers, init_mode)
 
     def trunk_feats(self, x):
         return x.reshape(x.shape[0], -1)
@@ -128,30 +135,32 @@ class ToyAuxVAE(_MLPAuxVAE):
 class MNISTConvAuxVAE(_AuxVAE):
     """auxconv baseline (reference models/vae/auxconv.py:33-369): three
     conv towers (aux encoder, main encoder, aux decoder), each its own trunk
-    on the image and an 800-wide fc."""
+    on the image and an 800-wide fc; all xavier under ``do_xavier`` (the JAX
+    twin's default True; the registry passes False, as JAX's does)."""
 
     likelihood = "bernoulli"
     center_input = True
 
     def __init__(self, input_height=28, input_channels=1, z0_dim=100, z_dim=32,
-                 nonlinearity="softplus"):
+                 nonlinearity="softplus", do_xavier=True, do_m5bias=False):
         super().__init__()
         self.z_dim, self.noise_dim = z_dim, z0_dim
         self.afun = get_nonlinear_func(nonlinearity)
+        xav = do_xavier
         trunk = dict(input_height=input_height, input_channels=input_channels,
-                     nonlinearity=nonlinearity)
+                     nonlinearity=nonlinearity, xavier=xav)
         self.aux_trunk = ConvEncoderTrunk(**trunk)
         feat = 32 * self.aux_trunk.s ** 2
-        self.aux_fc = Linear(feat, CONV_FC)
-        self.aux_reparam = NormalHead(CONV_FC, z0_dim)
+        self.aux_fc = Linear(feat, CONV_FC, xavier=xav)
+        self.aux_reparam = NormalHead(CONV_FC, z0_dim, xavier=xav)
         self.enc_trunk = ConvEncoderTrunk(**trunk)
-        self.enc_fc = Linear(feat + z0_dim, CONV_FC)
-        self.enc_reparam = NormalHead(CONV_FC, z_dim)
+        self.enc_fc = Linear(feat + z0_dim, CONV_FC, xavier=xav)
+        self.enc_reparam = NormalHead(CONV_FC, z_dim, xavier=xav)
         self.auxdec_trunk = ConvEncoderTrunk(**trunk)
-        self.auxdec_fc = Linear(feat + z_dim, CONV_FC)
-        self.auxdec_reparam = NormalHead(CONV_FC, z0_dim)
+        self.auxdec_fc = Linear(feat + z_dim, CONV_FC, xavier=xav)
+        self.auxdec_reparam = NormalHead(CONV_FC, z0_dim, xavier=xav)
         self.decode = ConvDecoder(z_dim, input_height, input_channels,
-                                  nonlinearity)
+                                  nonlinearity, xavier=xav, m5bias=do_m5bias)
 
     def trunk_feats(self, x):
         return x.reshape(x.shape[0], -1)

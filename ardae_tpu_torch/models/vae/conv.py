@@ -14,8 +14,10 @@ function.
 
 ``MNISTConvVAE`` is the conv baseline: trunk -> ``enc_fc`` (800) -> act ->
 Normal head, and the deconv decoder (reference models/vae/conv.py:138-295).
-The JAX twin's ``do_xavier`` / ``do_m5bias`` options are not ported: every
-registry passes False for both.
+``do_xavier`` makes every layer xavier-uniform with zero biases and splits
+the head into the plain linears ``enc_mean`` / ``enc_logvar``;
+``do_m5bias`` shifts the decoder's logits by -5. Both default False, as in
+the JAX twin and every registry.
 """
 
 import torch.nn as nn
@@ -64,12 +66,14 @@ class ConvEncoderTrunk(nn.Module):
 
 
 class ConvDecoder(nn.Module):
-    """(bsz, z) -> (logits (bsz, C*H*W),) (reference models/vae/conv.py:79-136)."""
+    """(bsz, z) -> (logits (bsz, C*H*W),) (reference models/vae/conv.py:79-136);
+    ``m5bias`` shifts the logits by -5."""
 
     def __init__(self, z_dim, input_height=28, input_channels=1,
-                 nonlinearity="softplus", xavier=False):
+                 nonlinearity="softplus", xavier=False, m5bias=False):
         super().__init__()
         self.afun = get_nonlinear_func(nonlinearity)
+        self.m5bias = m5bias
         self.s = feature_size(input_height)
         self.fc = MLP(z_dim, 300, self.s * self.s * 32, nonlinearity=nonlinearity,
                       num_hidden_layers=1, use_nonlinearity_output=True,
@@ -87,6 +91,8 @@ class ConvDecoder(nn.Module):
         h = F.pad(h, (0, 1, 0, 1))                 # ZeroPad2d((0, 1, 0, 1))
         h = a(self.deconv2(h))
         logit = self.reparam_logit(h)[..., :-1, :-1]  # ZeroPad2d((0, -1, 0, -1))
+        if self.m5bias:
+            logit = logit - 5.0
         return (logit.reshape(bsz, -1),)
 
 
@@ -98,17 +104,26 @@ class MNISTConvVAE(nn.Module):
     center_input = True
 
     def __init__(self, input_height=28, input_channels=1, z_dim=32,
-                 nonlinearity="softplus"):
+                 nonlinearity="softplus", do_xavier=False, do_m5bias=False):
         super().__init__()
-        self.z_dim = z_dim
+        self.z_dim, self.do_xavier = z_dim, do_xavier
         self.afun = get_nonlinear_func(nonlinearity)
-        self.trunk = ConvEncoderTrunk(input_height, input_channels, nonlinearity)
-        self.enc_fc = Linear(32 * self.trunk.s ** 2, 800)
-        self.enc_reparam = NormalHead(800, z_dim)
-        self.decode = ConvDecoder(z_dim, input_height, input_channels, nonlinearity)
+        self.trunk = ConvEncoderTrunk(input_height, input_channels, nonlinearity,
+                                      xavier=do_xavier)
+        self.enc_fc = Linear(32 * self.trunk.s ** 2, 800, xavier=do_xavier)
+        if do_xavier:
+            self.enc_mean = Linear(800, z_dim, xavier=True)
+            self.enc_logvar = Linear(800, z_dim, xavier=True)
+        else:
+            self.enc_reparam = NormalHead(800, z_dim)
+        self.decode = ConvDecoder(z_dim, input_height, input_channels, nonlinearity,
+                                  xavier=do_xavier, m5bias=do_m5bias)
 
     def encode_params(self, x):
-        return self.enc_reparam(self.afun(self.enc_fc(self.trunk(x))))
+        h = self.afun(self.enc_fc(self.trunk(x)))
+        if self.do_xavier:
+            return self.enc_mean(h), self.enc_logvar(h)
+        return self.enc_reparam(h)
 
     def decode_params(self, z_flat):
         return self.decode(z_flat)

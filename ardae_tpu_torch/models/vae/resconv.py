@@ -7,7 +7,9 @@ fc1 output to (4, 4, 32) NHWC. Here both are plain NCHW flattens/reshapes;
 packages compute the same function.
 
 ``MNISTResConvVAE`` is the resconv baseline: trunk (c_dim 450) -> Normal
-head, and the decoder (reference models/vae/resconv.py:142-240).
+head, and the decoder (reference models/vae/resconv.py:142-240);
+``do_m5bias`` shifts the decoder's logits by -3, as the JAX twin does for
+the reference's N(-3, 1e-4) bias.
 """
 
 import torch.nn as nn
@@ -94,14 +96,14 @@ class MNISTResConvVAE(nn.Module):
     center_input = True
 
     def __init__(self, input_height=28, input_channels=1, z_dim=32, c_dim=450,
-                 nonlinearity="elu", do_center=False):
+                 nonlinearity="elu", do_center=False, do_m5bias=False):
         super().__init__()
         if input_height != 28 or input_channels != 1:
             raise ValueError("MNISTResConvVAE takes 28x28x1 images")
         self.z_dim = z_dim
         self.trunk = ResConvTrunk(c_dim, nonlinearity, do_center)
         self.enc_reparam = NormalHead(c_dim, z_dim)
-        self.decode = ResConvDecoder(z_dim, c_dim, nonlinearity)
+        self.decode = ResConvDecoder(z_dim, c_dim, nonlinearity, do_m5bias)
 
     def encode_params(self, x):
         return self.enc_reparam(self.trunk(x))

@@ -158,11 +158,11 @@ def _phase_a_kernel(cdae, n_rows, dtype):
     if compute_dtype(dtype) is not None:
         raise NotImplementedError(
             "--use-kernels with a bf16 phase A (--cdae-compute-dtype "
-            "bfloat16): the fused DSM kernels compute in fp32 only, and the "
-            "JAX twin never dispatches its fused kernel in a bf16 phase A "
-            "(ardae_tpu/train/step.py:186-192, \"the fused path is "
-            "fp32-only\"; it runs XLA there); the port keeps no fallback "
-            "that hides a kernel: drop --use-kernels, or run phase A in fp32")
+            "bfloat16): the JAX step never dispatches a fused DSM kernel in a "
+            "bf16 phase A (ardae_tpu/train/step.py:186-192, \"the fused path "
+            "is fp32-only\"; it runs XLA there), so neither does this one, "
+            "and it keeps no fallback that hides a kernel: drop "
+            "--use-kernels, or run phase A in fp32")
     guard, loss_fn = _KERNELS[cdae.score_type]
     if not guard(cdae, n_rows):
         raise NotImplementedError(

@@ -233,18 +233,43 @@ Phases (each failure exits non-zero):
      drift as phase 11's control does), within PAR_METRICS. 12d: CWNconv2d,
      WNBilinear, the relaxed samplers, the Jacobian-clamping loss and
      shuffle, one small call each on the card against the CPU.
+  13. the grad kernel's bf16 compute mode and the constructor options.
+     13a: first, no earlier phase may have launched the bf16 mode (the
+     drivers never dispatch it); then phase 3b's checks and 4b's times for
+     the bf16 mode (compute_dtype="bfloat16", the TPU kernels' default)
+     against its bf16 plain version (rounded to bf16 where the TPU
+     row-tile kernel rounds, fp32 accumulation): the ragged shapes, the
+     implicit-conv shape and the 25-gaussians shape, each with a bitwise
+     repeat; bounds loss rel <= 1e-6, every gradient rel-norm <= 1.5e-3,
+     and at each line shape the control, the fp32 kernel against the
+     bf16 plain version, must be past the gradient bound; the library
+     yardstick is the chain's products as bf16 torch.matmul, the bound
+     FLOP over 989 TFLOP/s bf16 against bytes over 3.35 TB/s. Then the
+     mode's own path: 4 phase-A updates of the implicit-conv line (its
+     model, cdae and RMSprop, bs 128, nz 625, std-scale 10000) with the
+     loss from fused_cdae_dsm_grad_loss(..., compute_dtype="bfloat16"),
+     launch counters at 0 before and read after (1 + 1 bf16 launches an
+     update, no other kernel), finite losses, moved parameters, the first
+     loss within 1e-6 of the bf16 plain version's. 13b: one model of each
+     family of constructor options at a value other than its default
+     (ContextWeightNormalizedLinear in_norm / ctx_norm, ContextResMLP's
+     output activation and norms, ToyIPVAE init_mode "uniform",
+     MNISTConvVAE do_xavier + do_m5bias, ConvIPVAE do_xavier False): its
+     outputs and every parameter gradient of a fixed random projection,
+     card against CPU from the same weights and inputs, rel-norm <= 1e-5.
 Then it prints the kernels' JSON line (each kernel's launches over the
-main path's runs, 5-5i but 5c, 8a-8c, 9b, 10f, 11a, 11b, 11e, 12a and
-12c's train_chunk runs, and by line under "launched_by"; and at its
-first line's shape its error, times, FLOP,
+main path's runs, 5-5i but 5c, 8a-8c, 9b, 10f, 11a, 11b, 11e, 12a, 12c's
+train_chunk runs and 13a's updates, and by line under "launched_by"; and
+at its first line's shape its error, times, FLOP,
 launches per step and bound, the kernel's other shapes beside them under
 "at_<line>": the grad kernel's "at_25-gaussians" and each kernel's phase
 11 shard, "at_flagship-dp2-shard" and "at_implicit-conv-sp5-shard"; the
-bound is the larger of
-3 x FLOP over the 495 TFLOP/s TF32 tensor-core peak, the kernel's products
-being 3xTF32, and its inputs' and outputs' bytes over 3.35 TB/s; beside it
-the fp32 CUDA-core bound, FLOP over 67 TFLOP/s; H100 SXM peaks at 700 W),
-the card line, and as its last line {"ok": true, "device": {...}}.
+bound is the larger of the FLOP over the tensor cores' peak for the
+kernel's precision (3xTF32: 3 x FLOP over 495 TFLOP/s TF32; the bf16
+mode, fused_dsm_grad_{fwd,bwd}_bf16: FLOP over 989 TFLOP/s bf16) and its
+inputs' and outputs' bytes over 3.35 TB/s; beside it the fp32 CUDA-core
+bound, FLOP over 67 TFLOP/s; H100 SXM peaks at 700 W), the card line, and
+as its last line {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -465,7 +490,20 @@ PIPELINE_ARGS = ["--use-kernels", "--log-interval", "2", "--eval-iws-interval", 
                  "--ckpt-interval", "2", "--eval-batch-size", "128"]
 IWS_ATOL = 1e-3   # nats, per item, card against CPU
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
-TF32_FLOPS, FP32_FLOPS, HBM_BYTES = 495e12, 67e12, 3.35e12   # H100 SXM, 700 W
+# H100 SXM, 700 W: the tensor cores' dense TF32 and bf16 peaks, fp32 on the
+# CUDA cores, HBM3
+TF32_FLOPS, BF16_FLOPS, FP32_FLOPS, HBM_BYTES = 495e12, 989e12, 67e12, 3.35e12
+# phase 13a: the grad kernel's bf16 mode against its bf16 plain version.
+# Both round the same fp32 values to bf16 at the same places; they differ
+# only in the order of the fp32 sums, which can flip a rounding by one bf16
+# ulp before the next product. On an H100 this phase read loss rel 0-1.3e-7
+# and gradients up to 3.7e-4; its control, the fp32 kernel against the bf16
+# plain version, read gradients 5.0e-3 (25-gaussians) and 6.4e-3 (implicit
+# conv). The gradient bound sits between: 4x the worst kernel reading, under
+# a third of the least control one, and the control must be past it. The
+# loss cannot tell the modes apart (the control's loss reads 0 at the line
+# shapes: mean(R^2) is eps's), so its bound is 7x the worst reading
+KERNEL_BF16_LOSS_RTOL, KERNEL_BF16_GRAD_RTOL = 1e-6, 1.5e-3
 MS_STEP = {}   # each driver run's ms/step per log interval, by phase label
 
 
@@ -551,20 +589,23 @@ def io_bytes(args, leaves):
     return {"fwd": inputs + 4, "bwd": inputs + 4 + sum(t.numel() for t in leaves) * 4}
 
 
-def library_ms(torch, kind, args):
+def library_ms(torch, kind, args, dtype="float32"):
     """Median ms of the entry points' matrix products alone, as
-    torch.matmul calls on operands of the kernel's shapes (fp32, TF32 off)."""
+    torch.matmul calls on operands of the kernel's shapes, in ``dtype``
+    (fp32 with TF32 off, or bfloat16)."""
     ops, dims = products(kind, args)
-    ws, n, dev = args[6::2], args[2].shape[0], args[2].device
+    dtype = getattr(torch, dtype)
+    n, dev = args[2].shape[0], args[2].device
+    ws = [w[:, :inn].detach().to(dtype) for w, (_, inn) in zip(args[6::2], dims)]
     width = max(max(o, i) for o, i in dims)
     g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn(n, width, generator=g, device=dev)
-    y = torch.randn(n, width, generator=g, device=dev)
+    x = torch.randn(n, width, generator=g, device=dev).to(dtype)
+    y = torch.randn(n, width, generator=g, device=dev).to(dtype)
 
     def run(which):
         for op, i in ops[which]:
             out, inn = dims[i]
-            w = ws[i][:, :inn].detach()
+            w = ws[i]
             if op == "forward":
                 torch.matmul(x[:, :inn], w.t())
             elif op == "input_grad":
@@ -634,34 +675,50 @@ def time_ms(torch, fn, reps=7):
     return statistics.median(ts)
 
 
+def label(k):
+    """A kernel's name in the log: its cdae, and its mode but fp32."""
+    return k["cdae"] + ("" if k["precision"] == "fp32" else f" {k['precision']}")
+
+
 def check_ragged(torch, dev, build_cdae, k, what):
-    """Phase 3/3b: kernel vs plain at the ragged shapes."""
+    """Phase 3/3b/13a: kernel vs plain at the ragged shapes."""
     for bsz, ssz, d, h, layers, act, seed in k["ragged"]:
         args = dsm_case(k["prepare"], build_cdae, torch, dev, k["cdae"], bsz, ssz,
                         d, h, layers, act, seed)
         lrel, _, grel, _ = compare(torch, k["fn"].apply, k["plain"], args)
-        print(f"{what} compare {k['cdae']} n={bsz}x{ssz} d={d} h={h} "
+        print(f"{what} compare {label(k)} n={bsz}x{ssz} d={d} h={h} "
               f"layers={layers} {act}: loss rel {lrel:.2e}, worst grad rel-norm "
               f"{grel:.2e}", flush=True)
-        if not (lrel <= LOSS_RTOL and grel <= GRAD_RTOL):
-            fail(f"{k['cdae']} kernel disagrees with the plain version ({act}, "
+        if not (lrel <= k["loss_rtol"] and grel <= k["grad_rtol"]):
+            fail(f"{label(k)} kernel disagrees with the plain version ({act}, "
                  f"d={d}, h={h})")
 
 
 def check_line(torch, dev, build_cdae, k, what, line, shape):
-    """Phase 3/3b: kernel vs plain at a line's shape, and a bitwise repeat;
-    returns the inputs and (loss abs err, grad abs err)."""
+    """Phase 3/3b/13a: kernel vs plain at a line's shape, and a bitwise
+    repeat; returns the inputs and (loss abs err, grad abs err)."""
     bsz, ssz, d, h, layers, act, seed = shape
     args = dsm_case(k["prepare"], build_cdae, torch, dev, k["cdae"], bsz, ssz, d,
                     h, layers, act, seed)
     lrel, labs, grel, gabs = compare(torch, k["fn"].apply, k["plain"], args)
-    print(f"{what} compare {k['cdae']} at the {line} shape n={bsz}x{ssz} "
+    print(f"{what} compare {label(k)} at the {line} shape n={bsz}x{ssz} "
           f"d={d} h={h} layers={layers} {act}: loss rel {lrel:.2e} (abs "
           f"{labs:.2e}), worst grad rel-norm {grel:.2e} (max abs {gabs:.2e})",
           flush=True)
-    if not (lrel <= LOSS_RTOL and grel <= GRAD_RTOL):
-        fail(f"{k['cdae']} kernel disagrees with the plain version at the "
+    if not (lrel <= k["loss_rtol"] and grel <= k["grad_rtol"]):
+        fail(f"{label(k)} kernel disagrees with the plain version at the "
              f"{line} shape")
+    if "control" in k:
+        # the bound must be tight enough that a kernel of the other mode,
+        # held against this mode's plain version, is past it
+        clrel, _, cgrel, _ = compare(torch, k["control"].apply, k["plain"], args)
+        print(f"{what} control: the {k['control'].compute_dtype} kernel against "
+              f"the {label(k)} plain version at the {line} shape: loss rel "
+              f"{clrel:.2e}, worst grad rel-norm {cgrel:.2e} (bounds "
+              f"{k['loss_rtol']:g}, {k['grad_rtol']:g})", flush=True)
+        if not cgrel > k["grad_rtol"]:
+            fail(f"{label(k)}: the control is within the gradient bound at the "
+                 f"{line} shape, so it cannot tell the modes apart")
     leaves = [args[5]] + list(args[6:])
     runs = []
     for _ in range(2):
@@ -669,15 +726,24 @@ def check_line(torch, dev, build_cdae, k, what, line, shape):
         runs.append([loss.detach()] + grads(torch, loss, leaves))
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
-        fail(f"{k['cdae']} kernel is not bitwise repeatable at the {line} shape")
-    print(f"{what} repeat {k['cdae']} at the {line} shape: loss and "
+        fail(f"{label(k)} kernel is not bitwise repeatable at the {line} shape")
+    print(f"{what} repeat {label(k)} at the {line} shape: loss and "
           f"{len(leaves)} gradients bitwise equal over two runs", flush=True)
     return args, labs, gabs
 
 
+def bound_ms(k, flop, nbytes):
+    """(the least time for this work in ms, what bounds it): the products
+    at the tensor cores' peak for the kernel's precision (3xTF32 issues
+    three TF32 products for each) against the bytes at HBM's rate."""
+    ops_ms = k["passes"] * flop / k["peak"] * 1e3
+    bytes_ms = nbytes / HBM_BYTES * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
 def time_kernel(torch, k, args, what, line, card):
-    """Phase 4/4b: median ms of fwd, bwd and fwd+bwd, kernel and plain, in
-    turns plain, kernel, kernel, plain."""
+    """Phase 4/4b/13a: median ms of fwd, bwd and fwd+bwd, kernel and
+    plain, in turns plain, kernel, kernel, plain."""
     leaves = [args[5]] + list(args[6:])
     times = {}
     for name, fn in [("plain", k["plain"]), ("kernel", k["fn"].apply)] * 2:
@@ -689,19 +755,20 @@ def time_kernel(torch, k, args, what, line, card):
         del loss
     med = {n: [statistics.median(x[i] for x in v) for i in range(3)]
            for n, v in times.items()}
-    lib = library_ms(torch, k["kind"], args)
+    lib = library_ms(torch, k["kind"], args, k["library_dtype"])
     med["library"] = [lib["fwd"], lib["bwd"], lib["fwd"] + lib["bwd"]]
     fl = flops(k["kind"], args)
-    print(f"{what} time {k['cdae']} at the {line} shape (median of 7, "
+    nbytes = io_bytes(args, leaves)
+    bound = {w: bound_ms(k, fl[w], nbytes[w])[0] for w in ("fwd", "bwd")}
+    print(f"{what} time {label(k)} at the {line} shape (median of 7, "
           f"two turns each): kernel fwd {med['kernel'][0]:.3f} ms bwd "
           f"{med['kernel'][1]:.3f} ms fwd+bwd {med['kernel'][2]:.3f} ms | plain "
           f"fwd {med['plain'][0]:.3f} ms bwd {med['plain'][1]:.3f} ms fwd+bwd "
-          f"{med['plain'][2]:.3f} ms | products alone (torch.matmul fp32) fwd "
-          f"{lib['fwd']:.3f} ms bwd {lib['bwd']:.3f} ms | kernel "
-          f"{fl['fwd'] / med['kernel'][0] / 1e9:.1f} / "
+          f"{med['plain'][2]:.3f} ms | products alone (torch.matmul "
+          f"{k['precision']}) fwd {lib['fwd']:.3f} ms bwd {lib['bwd']:.3f} ms | "
+          f"kernel {fl['fwd'] / med['kernel'][0] / 1e9:.1f} / "
           f"{fl['bwd'] / med['kernel'][1] / 1e9:.1f} TFLOP/s fwd / bwd | bound "
-          f"3xTF32 {3e3 * fl['fwd'] / TF32_FLOPS:.3f} / "
-          f"{3e3 * fl['bwd'] / TF32_FLOPS:.3f} ms, fp32 "
+          f"{k['bound_label']} {bound['fwd']:.3f} / {bound['bwd']:.3f} ms, fp32 "
           f"{1e3 * fl['fwd'] / FP32_FLOPS:.3f} / {1e3 * fl['bwd'] / FP32_FLOPS:.3f} "
           f"ms fwd / bwd | {card}", flush=True)
     return med
@@ -2525,12 +2592,209 @@ def drive_phase12(torch, dev, res, grad, kernels, card, by_line, fd):
     print(f"phase 12 passed in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def check_kernel(torch, dev, build_cdae, k, what, what_time, card, shapes):
+    """Phases 3/4, 3b/4b and 13a: ``k`` against its plain version at its
+    ragged shapes and at each line's shape (with a bitwise repeat), timed
+    at each line's shape; the errors, times and work go into ``shapes``."""
+    check_ragged(torch, dev, build_cdae, k, what)
+    for line, shape in k["lines"].items():
+        args, labs, gabs = check_line(torch, dev, build_cdae, k, what, line,
+                                      shape)
+        med = time_kernel(torch, k, args, what_time, line, card)
+        shapes[label(k), line] = ((labs, gabs), med, (
+            flops(k["kind"], args), io_bytes(args, [args[5]] + list(args[6:]))))
+        del args
+        torch.cuda.empty_cache()
+
+
+# phase 13a: the implicit-conv line's phase-A update (scripts/
+# run_vae_dbmnist.sh:41: mnist-conv z 32, noise 100, softplus; mlp-grad h
+# 256, 5 layers, softplus, ctx lt0; bs 128, nz_cdae 625, std-scale 10000,
+# delta 0.1; RMSprop lr 1e-4, momentum 0.5) with the grad kernel's bf16 mode
+BF16_PHASE_A_STEPS, BF16_PHASE_A_BS, BF16_PHASE_A_NZ = 4, 128, 625
+
+
+def drive_bf16_phase_a(torch, dev, k, kernels, card):
+    """13a's own path: the bf16 mode through the op's public entry point,
+    ``fused_cdae_dsm_grad_loss(..., compute_dtype="bfloat16")``, as the
+    phase-A loss of the implicit-conv line's update written out (the train
+    step never asks for bf16), on binarised images made from a seed. Every
+    launch counter is 0 just before and read just after; the bf16 mode must
+    launch once each way a step and no other kernel at all. The first step's
+    loss is held against the bf16 plain version on the same inputs. Returns
+    the launches."""
+    import copy
+
+    from ardae_tpu_torch.models.registry import build_cdae, build_ivae_model
+    from ardae_tpu_torch.ops import fused_dsm_grad as fg
+    from ardae_tpu_torch.train.optim import build_optimizer
+    from ardae_tpu_torch.train.step import StepConfig, _sigma_stats
+
+    bs, steps = BF16_PHASE_A_BS, BF16_PHASE_A_STEPS
+    cfg = StepConfig(std_scale=10000.0, delta=0.1,
+                     train_nz_cdae=BF16_PHASE_A_NZ, ctx_type="lt0")
+    model = build_ivae_model("mnist-conv", nchannels=1, nheight=28, z_dim=32,
+                             n_dim=100, nonlin="softplus", seed=0, device=dev)
+    cdae = build_cdae("mlp-grad", input_dim=32, context_dim=32, h_dim=256,
+                      n_layers=5, nonlin="softplus", seed=1, device=dev)
+    start = copy.deepcopy(cdae)
+    opt = build_optimizer("rmsprop", cdae.parameters(), 1e-4, beta1=0.5,
+                          momentum=0.5)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = (torch.rand(bs, 784, generator=g, device=dev) < 0.3).float()
+    losses, first_rel = [], None
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    for step in range(steps):
+        lsm, sigma, latent_mean, _, _ = _sigma_stats(model, x, cfg, g)
+        std = sigma * torch.randn(bs, cfg.train_nz_cdae, 1, generator=g,
+                                  device=dev)
+        eps = torch.randn(bs * cfg.train_nz_cdae, 32, generator=g, device=dev)
+        ctx = latent_mean.reshape(bs, -1)
+        loss = fg.fused_cdae_dsm_grad_loss(cdae, lsm, ctx, std, eps=eps,
+                                           compute_dtype="bfloat16")
+        if step == 0:
+            with torch.no_grad():
+                plain = fg.fused_cdae_dsm_grad_loss_reference(
+                    cdae, lsm, ctx, std, eps=eps, compute_dtype="bfloat16")
+            first_rel = abs(float(loss.detach()) - float(plain)) / abs(float(plain))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    expected = {n: (steps if n in k["fn"].launches else 0) for n in launches}
+    if launches != expected:
+        fail(f"phase 13a bf16 phase A: kernel launches {launches}, expected "
+             f"{expected}")
+    moved = sum(not torch.equal(p, q)
+                for p, q in zip(cdae.parameters(), start.parameters()))
+    if not (all(map(math.isfinite, losses)) and moved
+            and first_rel <= KERNEL_BF16_LOSS_RTOL):
+        fail(f"phase 13a bf16 phase A: losses {losses}, first against the plain "
+             f"version {first_rel:.2e}, {moved} cdae tensors moved")
+    print(f"phase 13a bf16 phase A (implicit-conv widths, bs {bs}, nz "
+          f"{cfg.train_nz_cdae}): {steps} updates through fused_cdae_dsm_grad_loss"
+          f"(compute_dtype='bfloat16') in {sec:.2f} s ({1e3 * sec / steps:.1f} "
+          f"ms/update, the first included); losses {[f'{v:.4f}' for v in losses]}; "
+          f"first step's loss against the bf16 plain version rel {first_rel:.2e}; "
+          f"{moved}/{len(list(cdae.parameters()))} cdae tensors moved; launches "
+          f"{launches} | {card}", flush=True)
+    return launches
+
+
+# phase 13b: card against CPU, forward and every parameter gradient
+OPTIONS_RTOL = 1e-5
+
+
+def option_models(torch):
+    """Phase 13b's models, one for each family of constructor options, each
+    at a value other than its default, with a batch of its inputs made from
+    a seed: (family, module, inputs, call)."""
+    from ardae_tpu_torch.models.ivae.conv import ConvIPVAE
+    from ardae_tpu_torch.models.ivae.toy import ToyIPVAE
+    from ardae_tpu_torch.models.vae.conv import MNISTConvVAE
+    from ardae_tpu_torch.nn.linear import ContextWeightNormalizedLinear
+    from ardae_tpu_torch.nn.mlp import ContextResMLP
+
+    g = torch.Generator().manual_seed(13)
+    randn = lambda *shape: torch.randn(*shape, generator=g)
+    images = (torch.rand(16, 784, generator=g) < 0.3).float()
+    z = randn(16, 32)
+    return [
+        ("linear: ContextWeightNormalizedLinear(in_norm=True, ctx_norm=False)",
+         ContextWeightNormalizedLinear(256, 256, 256, in_norm=True, ctx_norm=False),
+         (randn(64, 256), randn(64, 256)), lambda m, x, c: m(x, c)),
+        ("mlp: ContextResMLP(use_nonlinearity_output, use_norm, use_norm_output)",
+         ContextResMLP(10, 256, 256, 2, nonlinearity="relu", num_hidden_layers=2,
+                       use_nonlinearity_output=True, use_norm=True,
+                       use_norm_output=True),
+         (randn(64, 10), randn(64, 256)), lambda m, x, c: m(x, c)),
+        ("toy: ToyIPVAE(enc_type='concat', init_mode='uniform')",
+         ToyIPVAE(**TOY_ENC, enc_type="concat", init_mode="uniform"),
+         (randn(16, 2), randn(64, 10)),
+         lambda m, x, e: (m.sample_z(x, e), m.decode_params(e[:, :2]))),
+        ("baseline: MNISTConvVAE(do_xavier=True, do_m5bias=True)",
+         MNISTConvVAE(z_dim=32, do_xavier=True, do_m5bias=True), (images, z),
+         lambda m, x, z: (m.encode_params(x), m.decode_params(z))),
+        ("implicit: ConvIPVAE(do_xavier=False)",
+         ConvIPVAE(z_dim=32, noise_dim=100, do_xavier=False),
+         (images, randn(64, 100), z),
+         lambda m, x, e, z: (m.sample_z(x, e), m.decode_params(z))),
+    ]
+
+
+def drive_options(torch, card):
+    """Phase 13b: each option model's outputs and every parameter gradient
+    of a fixed random projection of them, card against CPU from the same
+    weights and inputs, within OPTIONS_RTOL (rel-norm; TF32 off)."""
+    import copy
+
+    from ardae_tpu_torch.nn.initializers import init_module
+
+    def leaves(out):
+        return ([x for o in out for x in leaves(o)]
+                if isinstance(out, (tuple, list)) else [out])
+
+    for family, module, inputs, call in option_models(torch):
+        init_module(module, torch.Generator().manual_seed(0))
+        runs = []
+        for dev in ("cuda", "cpu"):
+            m = copy.deepcopy(module).to(dev)
+            outs = leaves(call(m, *[x.to(dev) for x in inputs]))
+            ws = [torch.randn(o.shape, generator=torch.Generator().manual_seed(i))
+                  for i, o in enumerate(outs)]
+            sum((o * w.to(dev)).sum() for o, w in zip(outs, ws)).backward()
+            runs.append(([o.detach().cpu() for o in outs],
+                         {k: p.grad.cpu() for k, p in m.named_parameters()
+                          if p.grad is not None}))
+        (oc, gc), (op, gp) = runs
+        if gc.keys() != gp.keys() or not gp:
+            fail(f"phase 13b {family}: gradients on {sorted(gc)} vs {sorted(gp)}")
+        orel = max(rel_norm(a, b) for a, b in zip(oc, op))
+        grel = max(rel_norm(gc[k], gp[k]) for k in gp)
+        finite = all(bool(torch.isfinite(o).all()) for o in oc)
+        print(f"phase 13b {family}: card vs CPU outputs rel-norm {orel:.2e}, worst "
+              f"of {len(gp)} gradients rel-norm {grel:.2e} | {card}", flush=True)
+        if not (finite and orel <= OPTIONS_RTOL and grel <= OPTIONS_RTOL):
+            fail(f"phase 13b {family}: card and CPU differ (outputs {orel:.2e}, "
+                 f"gradients {grel:.2e})")
+
+
+def drive_phase13(torch, dev, build_cdae, grad_bf16, kernels, card, by_line,
+                  shapes):
+    """Phase 13a: the grad kernel's bf16 mode; 13b: the constructor
+    options, card against CPU."""
+    t0 = time.perf_counter()
+    # phases 5-12 drove every line: none may have launched the bf16 mode
+    if any(grad_bf16["fn"].launches.values()):
+        fail(f"phase 13a: the drivers launched the bf16 mode "
+             f"{grad_bf16['fn'].launches}")
+    check_kernel(torch, dev, build_cdae, grad_bf16, "phase 13a", "phase 13a",
+                 card, shapes)
+    by_line["implicit-conv-phase-a-bf16"] = drive_bf16_phase_a(
+        torch, dev, grad_bf16, kernels + (grad_bf16,), card)
+    torch.cuda.empty_cache()
+    print(f"phase 13a passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    drive_options(torch, card)
+    print(f"phase 13 passed in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def kernels_under_test(fd, fg):
     """Each kernel's entry of the checks: its autograd function, plain
     version, input maker, launches a cdae update, ragged shapes and line
-    shapes ((bsz, ssz, d, h, layers, act, seed))."""
+    shapes ((bsz, ssz, d, h, layers, act, seed)), its precision, bounds
+    against the plain version and peak; the third is the grad kernel's bf16
+    mode (phase 13a), at phase 3b's ragged shapes and first two lines."""
+    import functools
+
     acts = ("softplus", "relu", "tanh")
-    res = {"cdae": "mlp-res", "kind": "res", "fn": fd.FusedDSMFunction,
+    fp32 = {"precision": "fp32", "loss_rtol": LOSS_RTOL, "grad_rtol": GRAD_RTOL,
+            "peak": TF32_FLOPS, "passes": 3, "bound_label": "3xTF32",
+            "library_dtype": "float32"}
+    res = {**fp32, "cdae": "mlp-res", "kind": "res", "fn": fd.FusedDSMFunction,
            "plain": fd.dsm_chain_reference, "prepare": fd.prepare_inputs,
            "updates": 2,
            "ragged": [(3, 37, 5, 24, 2, a, 1) for a in acts]
@@ -2538,7 +2802,8 @@ def kernels_under_test(fd, fg):
            "lines": {"flagship": (128, 625, 32, 512, 5, "softplus", 3),
                      # one rank's rows in phase 11a (dp 2)
                      "flagship-dp2-shard": (64, 625, 32, 512, 5, "softplus", 5)}}
-    grad = {"cdae": "mlp-grad", "kind": "grad", "fn": fg.FusedDSMGradFunction,
+    grad = {**fp32, "cdae": "mlp-grad", "kind": "grad",
+            "fn": fg.FusedDSMGradFunction,
             "plain": fg.dsm_grad_chain_reference, "prepare": fd.prepare_inputs,
             "updates": 1,
             "ragged": [(3, 37, d, 24, 2, a, 1) for d in (5, 2) for a in acts]
@@ -2548,7 +2813,15 @@ def kernels_under_test(fd, fg):
                       # one rank's rows in phase 11b (sp 5)
                       "implicit-conv-sp5-shard": (128, 125, 32, 256, 5,
                                                   "softplus", 6)}}
-    return res, grad
+    lines = dict(list(grad["lines"].items())[:2])
+    grad_bf16 = {**grad, "precision": "bf16", "fn": fg.FusedDSMGradBF16Function,
+                 "plain": functools.partial(fg.dsm_grad_chain_reference,
+                                            compute_dtype="bfloat16"),
+                 "loss_rtol": KERNEL_BF16_LOSS_RTOL,
+                 "grad_rtol": KERNEL_BF16_GRAD_RTOL, "peak": BF16_FLOPS,
+                 "passes": 1, "bound_label": "bf16", "library_dtype": "bfloat16",
+                 "lines": lines, "control": fg.FusedDSMGradFunction}
+    return res, grad, grad_bf16
 
 
 def main():
@@ -2572,7 +2845,7 @@ def main():
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} | {card} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    res, grad = kernels_under_test(fd, fg)
+    res, grad, grad_bf16 = kernels_under_test(fd, fg)
     kernels = (res, grad)
 
     t0 = time.perf_counter()
@@ -2603,17 +2876,10 @@ def main():
     # fp32 comparisons: TF32 off for every matmul and convolution
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    shapes = {}   # (cdae, line) -> (errors, medians, (flop, bytes))
+    shapes = {}   # (kernel label, line) -> (errors, medians, (flop, bytes))
     for k, what in ((res, "phase 3"), (grad, "phase 3b")):
-        check_ragged(torch, dev, build_cdae, k, what)
-        for line, shape in k["lines"].items():
-            args, labs, gabs = check_line(torch, dev, build_cdae, k, what, line,
-                                          shape)
-            med = time_kernel(torch, k, args, what.replace("3", "4"), line, card)
-            shapes[k["cdae"], line] = ((labs, gabs), med, (
-                flops(k["kind"], args), io_bytes(args, [args[5]] + list(args[6:]))))
-            del args
-            torch.cuda.empty_cache()
+        check_kernel(torch, dev, build_cdae, k, what, what.replace("3", "4"),
+                     card, shapes)
 
     by_line = {}   # each main-path run's launches, by line
     ms_step = {}   # and its ms/step per log interval
@@ -2643,21 +2909,23 @@ def main():
     print(f"phase 10 passed in {time.perf_counter() - t10:.1f} s", flush=True)
     drive_parallel(torch, res, grad, kernels, card, by_line)
     drive_phase12(torch, dev, res, grad, kernels, card, by_line, fd)
-    launches = {n: sum(c[n] for c in by_line.values()) for k in kernels
+    drive_phase13(torch, dev, build_cdae, grad_bf16, kernels, card, by_line,
+                  shapes)
+    every = kernels + (grad_bf16,)
+    launches = {n: sum(c.get(n, 0) for c in by_line.values()) for k in every
                 for n in k["fn"].launches}
-    launched_by = {n: {line: c[n] for line, c in by_line.items() if c[n]}
+    launched_by = {n: {line: c[n] for line, c in by_line.items() if c.get(n)}
                    for n in launches}
 
     def numbers(k, line, which):
-        (errs, med, work) = shapes[k["cdae"], line]
+        (errs, med, work) = shapes[label(k), line]
         part = ("fwd", "bwd")[which]
         flop, nbytes = (w[part] for w in work)
-        ops_ms, bytes_ms = 3 * flop / TF32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+        bound, bound_by = bound_ms(k, flop, nbytes)
         return {"max_abs_err": errs[which], "ms": med["kernel"][which],
-                "plain_ms": med["plain"][which], "bound_ms": max(ops_ms, bytes_ms),
-                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                "library_ms": med["library"][which], "flop": flop,
-                "fp32_bound_ms": flop / FP32_FLOPS * 1e3}
+                "plain_ms": med["plain"][which], "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": med["library"][which],
+                "flop": flop, "fp32_bound_ms": flop / FP32_FLOPS * 1e3}
 
     def entry(name, k, source, replaces, which):
         # the numbers of the kernel's first line; the other lines' beside them
@@ -2679,6 +2947,10 @@ def main():
               grad_sites, 0),
         entry("fused_dsm_grad_bwd", grad, "ardae_tpu_torch/csrc/fused_dsm_grad.cu",
               grad_sites, 1),
+        entry("fused_dsm_grad_fwd_bf16", grad_bf16,
+              "ardae_tpu_torch/csrc/fused_dsm_grad.cu", grad_sites, 0),
+        entry("fused_dsm_grad_bwd_bf16", grad_bf16,
+              "ardae_tpu_torch/csrc/fused_dsm_grad.cu", grad_sites, 1),
     ]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -126,14 +126,16 @@ def cmd_ab(a):
 
 
 def short_name(name):
-    """'sgemm_kernel<true, true, FwdEpi>' -> 'sgemm FwdEpi'; else the bare
-    function name."""
+    """'sgemm_kernel<true, true, FwdEpi, 0>' -> 'sgemm FwdEpi' (the bf16
+    products, precision 1: 'sgemm FwdEpi bf16'); else the bare function
+    name."""
     name = name.replace("(anonymous namespace)::", "")
     m = re.search(r"(\w+)(<[^()]*>)?\(", name)
     if not m:
         return name[:40]
     if m.group(2):
-        return f"{m.group(1).replace('_kernel', '')} {m.group(2)[1:-1].split(',')[-1].strip()}"
+        *_, epi, prec = (a.strip() for a in m.group(2)[1:-1].split(","))
+        return f"{m.group(1).replace('_kernel', '')} {epi}" + (" bf16" if prec == "1" else "")
     return m.group(1).replace("_kernel", "")
 
 
