@@ -23,30 +23,35 @@
 //    (three TF32 products per fp32 product, 495 TFLOP/s at 700 W), 2.32 +
 //    4.62 ms. Plain TF32 would keep ~3 decimal digits and break the
 //    agreement with the fp32 plain version; bf16 is not taken either.
-//  * So every layer's product runs through the tensor-core GEMM of
-//    dsm_sgemm.cuh: mma.sync m16n8k8 TF32 with each operand split in
-//    registers (hi, lo), a 128x128x32 block tile of 8 warps, a 3-stage
-//    cp.async ring in 99-120 KB of dynamic shared memory (one block an SM),
-//    padded tiles whose fragment reads are free of bank conflicts in all
-//    three operand layouts (forward A.W^T, input gradient dp.W, weight
-//    gradient dp^T.h), and the chain's elementwise work in fused epilogues
-//    fed row by row from shared memory: forward (bias, sigma column,
-//    per-item ctx row, activation), backward input gradient (times phi',
-//    its loads batched 16 rows deep), and split-K weight-gradient partials.
-//    Measured on an H100 at 700 W: 45 TFLOP/s in the forward's h x h
-//    products, 57 in the weight gradients, against a 3xTF32 ceiling of
-//    ~105 (mma.sync TF32 peaks at ~310 TFLOP/s, scripts/torch_mma_peak.py;
-//    only wgmma reaches 495), so about 9.3 + 16.7 ms an update.
-//  * l0's weight has stride in + 1 (sigma's column is last), which no
-//    16-byte copy can read: each entry point packs W_l0[:, :in] once into
-//    an aligned copy at the front of its scratch (1 MB at the flagship).
+//  * So every layer's product runs through the shared GEMM core of
+//    dsm_sgemm.cuh, on wgmma: a persistent, warp-specialised block a SM,
+//    TMA loads into an mbarrier ring, two consumer warpgroups issuing
+//    m64n128k8 TF32 products (each operand split once into hi and lo: the
+//    weight by prep_b once a product, A in the consumers' registers), and
+//    the chain's elementwise work in fused epilogues fed row by row from
+//    shared memory: forward (bias, sigma column, per-item ctx row,
+//    activation), backward input gradient (times phi', its loads batched
+//    16 rows deep), and split-K weight-gradient partials. The input
+//    gradient's dp . W reads W^T laid out K-major by prep_b, so every
+//    product but the weight gradients' takes the same K-major operands.
+//    Now the core's own pace bounds it, not the instruction: at the
+//    flagship the h x h products run at ~86 TFLOP/s of fp32 products and the
+//    weight gradients at ~78 (scripts/torch_dsm_measure.py core), against a
+//    3xTF32 ceiling of ~163 (wgmma TF32 488 TFLOP/s,
+//    scripts/torch_mma_peak.py), so 6.6 + 11.8 ms an update
+//    (chip_smoke.py phase 4), all on an H100 80GB HBM3 at 700 W. What holds
+//    the products below the ceiling: each consumer warpgroup waits for its
+//    own group before adding it to its running sum (the fresh accumulator),
+//    and the epilogue's loads and stores run between units, not under them.
+//  * l0's weight has stride in + 1 (sigma's column is last), which TMA
+//    cannot read: prep_b lays W_l0[:, :in] out once per product, as it does
+//    every weight, into the front of the scratch (2 MB at the flagship).
 //  * Workspace, not recompute: the forward writes every hidden post-
 //    activation to a global workspace ((layers-1) x n x h fp32, 1.6 GB at the
 //    flagship); the backward reads it and takes phi' from the post-activation
 //    (softplus: 1 - exp(-h); relu: h > 0; tanh: 1 - h^2). This spends HBM
 //    bytes (~4 GB/update, ~1.3 ms at 3.35 TB/s) to save the third of the
-//    FLOPs a recomputing backward would repeat; that traffic is a larger
-//    share of the time now that the products run on the tensor cores.
+//    FLOPs a recomputing backward would repeat.
 //  * Deterministic reductions, no atomics: the TPU kernel accumulated dW, db
 //    and the loss over a sequential grid. Here dW is a split-K GEMM whose
 //    splits each write a partial to scratch, then one pass sums the splits
@@ -60,7 +65,8 @@
 //    d loss / d r, so every gradient comes out already scaled by it.
 //
 // Plain C interface, loaded with ctypes; every entry point launches on the
-// given stream, allocates nothing, and returns cudaGetLastError().
+// given stream, allocates nothing, and returns the launches' status
+// (launch_status: the first GEMM the core refused, else cudaGetLastError()).
 
 #include "dsm_sgemm.cuh"
 
@@ -102,7 +108,7 @@ extern "C" {
 // LOSS_BLOCKS loss partials).
 long long fused_dsm_scratch_floats(int n, int n_layers, const int* in_dims,
                                    const int* out_dims) {
-  long long need = LOSS_BLOCKS;   // after the packed l0 weight
+  long long need = LOSS_BLOCKS;   // after the laid-out weight (prep_b)
   for (int i = 0; i < n_layers; ++i) {
     const long long S = wgrad_splits(out_dims[i], in_dims[i], n);
     const long long w = S * out_dims[i] * in_dims[i];
@@ -110,7 +116,7 @@ long long fused_dsm_scratch_floats(int n, int n_layers, const int* in_dims,
     if (w > need) need = w;
     if (b > need) need = b;
   }
-  return pack_floats(n_layers, in_dims, out_dims) + need;
+  return prep_floats(n_layers, in_dims, out_dims) + need;
 }
 
 // Forward. W[i] is (out_dims[i], ldw[i]) row-major, B[i] is (out_dims[i],).
@@ -123,9 +129,8 @@ int fused_dsm_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
                   const float* const* B, const int* in_dims,
                   const int* out_dims, const int* ldw, float* acts, int act_ld,
                   float* r, float* scratch, float* loss, cudaStream_t stream) {
-  float* w_l0 = scratch;
-  scratch += pack_floats(n_layers, in_dims, out_dims);
-  pack_cols(W[l0], out_dims[l0], in_dims[l0], ldw[l0], w_l0, stream);
+  float* prep = scratch;   // each product's weight, converted (prep_b)
+  scratch += prep_floats(n_layers, in_dims, out_dims);
   const float* hin = xbar;
   int hin_ld = d;
   for (int i = 0; i < n_layers; ++i) {
@@ -145,9 +150,8 @@ int fused_dsm_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
       ep.ctx_ld = ctx_ld;
       ep.ssz = ssz;
     }
-    sgemm<true, true>(n, out_dims[i], in_dims[i], 1, hin, hin_ld,
-                      i == l0 ? w_l0 : W[i],
-                      i == l0 ? pack_ld(in_dims[i]) : ldw[i], ep, stream);
+    sgemm_w(n, out_dims[i], in_dims[i], hin, hin_ld, W[i], ldw[i], false, prep,
+            ep, stream);
     hin = out;
     hin_ld = out_ld;
   }
@@ -155,7 +159,7 @@ int fused_dsm_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
       r, eps, sigma, (long long)n * d, d, scratch);
   loss_final_kernel<<<1, 256, 0, stream>>>(scratch, LOSS_BLOCKS,
                                            1.f / ((float)n * (float)d), loss);
-  return (int)cudaGetLastError();
+  return launch_status();
 }
 
 // Backward. g: the upstream cotangent (1 float on the device). dW[i] and
@@ -169,9 +173,8 @@ int fused_dsm_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
                   float* const* dB, float* dctx, int ctx_ld, float* dp0,
                   float* dp1, float* scratch, cudaStream_t stream) {
   const long long total = (long long)n * d;
-  float* w_l0 = scratch;
-  scratch += pack_floats(n_layers, in_dims, out_dims);
-  pack_cols(W[l0], out_dims[l0], in_dims[l0], ldw[l0], w_l0, stream);
+  float* prep = scratch;   // each product's weight, converted (prep_b)
+  scratch += prep_floats(n_layers, in_dims, out_dims);
   float* dp = dp0;
   float* dp_next = dp1;
   dloss_dr_kernel<<<cdiv(total, 256), 256, 0, stream>>>(
@@ -195,14 +198,13 @@ int fused_dsm_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
     if (i > 0) {
       // dp_next = (dp @ W[:, :in]) * phi'(hin)
       const DhEpi ep = {dp_next, in, hin, hin_ld, act};
-      sgemm<true, false>(n, in, out, 1, dp, out, i == l0 ? w_l0 : W[i],
-                         i == l0 ? pack_ld(in) : ldw[i], ep, stream);
+      sgemm_w(n, in, out, dp, out, W[i], ldw[i], true, prep, ep, stream);
       float* t = dp;
       dp = dp_next;
       dp_next = t;
     }
   }
-  return (int)cudaGetLastError();
+  return launch_status();
 }
 
 }  // extern "C"

@@ -60,27 +60,35 @@
 //    keeps it (d_k), which saves one pass.
 //  * The bf16 mode does the same 0.192 + 0.384 TFLOP an update at 989
 //    TFLOP/s bf16: about 0.19 + 0.39 ms as its operations bound. It takes
-//    one mma.sync.m16n8k16 bf16 product a fragment instead of 3xTF32's
-//    three m16n8k8 ones (each operand rounded once, to nearest even, as its
-//    fragment is read), so its products issue about 6x fewer tensor-core
-//    instructions. Everything else is the fp32 mode's: the fp32 workspace
-//    and its traffic (below), the ring, the reductions, and epilogues that
-//    add only the roundings and a write of bf16(z) and of the tangent
-//    input below l0, so the bf16 mode is bound by that traffic and the
-//    short launches sooner than by its products. Storing the workspace in
-//    bf16, and wgmma with TMA, are what would move it toward its bound.
+//    one m64n128k16 bf16 wgmma a k-step instead of 3xTF32's three m64n128k8
+//    ones (each operand rounded once, to nearest even: the weight by prep_b,
+//    A in the consumers' registers, the weight gradients' B in the core's
+//    stagers). Everything else is the fp32 mode's: the fp32 workspace and
+//    its traffic (below), the ring, the reductions, and epilogues that add
+//    only the roundings and a write of bf16(z) and of the tangent input
+//    below l0. So the bf16 mode is bound by that traffic: its A tiles are
+//    fp32 (16 KB a k-tile for 4 wgmma), and the core measured ~90
+//    TFLOP/s at h 256 (scripts/torch_dsm_measure.py core) for 4.4 +
+//    6.9 ms an update (chip_smoke.py phase 13a). Storing the workspace in
+//    bf16 is what would move it toward its bound.
 //  * No block can hold a row tile's whole chain (a (128, 256) fp32 tile is
 //    128 KB of 227 KB), so each layer of each chain is one launch of the
-//    shared tensor-core GEMM of dsm_sgemm.cuh (mma.sync m16n8k8 TF32, each
-//    operand split in registers into hi and lo, a 128x128x32 block tile of
-//    8 warps, a 3-stage cp.async ring in 99-120 KB of dynamic shared
-//    memory, bank-conflict-free fragment reads in all three operand
-//    layouts), with the chain's elementwise work fused in its epilogue, fed
-//    row by row from shared memory with its loads batched; weights stream
-//    from L2. l0's weight (stride in + 1) is packed once per entry point
-//    into an aligned copy at the front of the scratch. Measured on an H100
-//    at 700 W: ~35 TFLOP/s in the h x h forward and tangent products, 57 in
-//    the weight gradients, against a 3xTF32 ceiling of ~105 (mma.sync).
+//    shared GEMM core of dsm_sgemm.cuh (wgmma with TMA, persistent and
+//    warp-specialised: each operand split once into tf32 hi and lo, the
+//    weight by prep_b once a product, A in the consumers' registers, the
+//    weight gradients' activations by the core's stagers), with the chain's
+//    elementwise work fused in its epilogue, fed row by row from shared
+//    memory with its loads batched; weights stream from L2. The products
+//    with W_k[:, :in] (steps 2, 3 and the primal adjoint) read its
+//    transpose laid out K-major by prep_b, and l0's weight (stride in + 1)
+//    goes through prep_b like every other. Measured on an H100 80GB HBM3 at
+//    700 W: ~61 TFLOP/s of fp32 products in the h x h products
+//    and ~69 in the weight gradients (scripts/torch_dsm_measure.py core),
+//    against a 3xTF32 ceiling of ~163 (wgmma TF32 488 TFLOP/s,
+//    scripts/torch_mma_peak.py); 4.9 + 8.3 ms an update at the line
+//    (chip_smoke.py phase 4b). At h 256 a unit has 8 k-tiles, so its
+//    epilogue, which runs between units and not under them, weighs more
+//    than at the flagship's 16.
 //  * Workspace: u_k and d_k from the forward, tu_k and c_k in the backward,
 //    4 x (L-1) x n x h fp32 (3.3 GB at the line), read back by the later
 //    products. The top layer's adjoint seeds (w_out broadcast) never become
@@ -91,7 +99,8 @@
 //    is a fixed-grid block sum. Every edge is masked; no row is padded.
 //
 // Plain C interface, loaded with ctypes; every entry point launches on the
-// given stream, allocates nothing, and returns cudaGetLastError().
+// given stream, allocates nothing, and returns the launches' status
+// (launch_status: the first GEMM the core refused, else cudaGetLastError()).
 
 #include <type_traits>
 
@@ -360,7 +369,7 @@ extern "C" {
 long long fused_dsm_grad_scratch_floats(int n, int n_layers,
                                         const int* in_dims,
                                         const int* out_dims) {
-  long long need = LOSS_BLOCKS;   // after the packed l0 weight
+  long long need = LOSS_BLOCKS;   // after the laid-out weight (prep_b)
   for (int k = 0; k < n_layers; ++k) {
     const long long S = wgrad_splits(out_dims[k], in_dims[k], n);
     const long long w = 2 * S * out_dims[k] * in_dims[k];
@@ -370,7 +379,7 @@ long long fused_dsm_grad_scratch_floats(int n, int n_layers,
     if (b > need) need = b;
     if (b2 > need) need = b2;
   }
-  return pack_floats(n_layers, in_dims, out_dims) + need;
+  return prep_floats(n_layers, in_dims, out_dims) + need;
 }
 
 // Forward, steps 1-3, its products in prec (PREC_F32 0, PREC_BF16 1; any
@@ -430,11 +439,8 @@ int grad_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
              float* scratch, float* loss, cudaStream_t stream) {
   const int top = n_layers - 2;
   const long long nh = (long long)n * h;
-  float* w_l0 = scratch;
-  scratch += pack_floats(n_layers, in_dims, out_dims);
-  pack_cols(W[l0], out_dims[l0], in_dims[l0], ldw[l0], w_l0, stream);
-  auto wmat = [&](int k) { return k == l0 ? (const float*)w_l0 : W[k]; };
-  auto wld = [&](int k) { return k == l0 ? pack_ld(in_dims[k]) : ldw[k]; };
+  float* prep = scratch;   // each product's weight, converted (prep_b)
+  scratch += prep_floats(n_layers, in_dims, out_dims);
   // 1. forward chain: acts[k] = phi(z_k)
   const float* hin = xbar;
   int hin_ld = d;
@@ -458,8 +464,8 @@ int grad_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
       ep.ctx_ld = ctx_ld;
       ep.ssz = ssz;
     }
-    sgemm<true, true, PREC>(n, out_dims[k], in_dims[k], 1, hin, hin_ld,
-                            wmat(k), wld(k), ep, stream);
+    sgemm_w<PREC>(n, out_dims[k], in_dims[k], hin, hin_ld, W[k], ldw[k], false,
+                  prep, ep, stream);
     hin = acts + k * nh;
     hin_ld = h;
   }
@@ -474,23 +480,23 @@ int grad_fwd(int n, int d, int ssz, int n_layers, int l0, int act,
   for (int k = top; k >= 1; --k) {
     if constexpr (PREC == PREC_BF16) {
       const DhEpiBF16 ep = {deltas + (k - 1) * nh, acts + (k - 1) * nh, h, act};
-      sgemm<true, false, PREC>(n, in_dims[k], out_dims[k], 1, deltas + k * nh,
-                               h, wmat(k), wld(k), ep, stream);
+      sgemm_w<PREC>(n, in_dims[k], out_dims[k], deltas + k * nh, h, W[k],
+                    ldw[k], true, prep, ep, stream);
     } else {
       const DhEpi ep = {deltas + (k - 1) * nh, h, acts + (k - 1) * nh, h, act};
-      sgemm<true, false, PREC>(n, in_dims[k], out_dims[k], 1, deltas + k * nh,
-                               h, wmat(k), wld(k), ep, stream);
+      sgemm_w<PREC>(n, in_dims[k], out_dims[k], deltas + k * nh, h, W[k],
+                    ldw[k], true, prep, ep, stream);
     }
   }
   // 3. g = d_0 @ W_0, R = eps - sigma * g, loss = sum(R^2) / N
   const ResidEpi ep = {R, sigma, eps, d};
-  sgemm<true, false, PREC>(n, d, out_dims[0], 1, deltas, h, wmat(0), wld(0),
-                           ep, stream);
+  sgemm_w<PREC>(n, d, out_dims[0], deltas, h, W[0], ldw[0], true, prep, ep,
+                stream);
   sumsq_partial_kernel<<<LOSS_BLOCKS, 256, 0, stream>>>(R, (long long)n * d,
                                                         scratch);
   loss_final_kernel<<<1, 256, 0, stream>>>(scratch, LOSS_BLOCKS,
                                            1.f / ((float)n * (float)d), loss);
-  return (int)cudaGetLastError();
+  return launch_status();
 }
 
 template <int PREC>
@@ -504,11 +510,8 @@ int grad_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
   const int top = n_layers - 2;
   const long long nh = (long long)n * h;
   const long long total = (long long)n * d;
-  float* w_l0 = scratch;
-  scratch += pack_floats(n_layers, in_dims, out_dims);
-  pack_cols(W[l0], out_dims[l0], in_dims[l0], ldw[l0], w_l0, stream);
-  auto wmat = [&](int k) { return k == l0 ? (const float*)w_l0 : W[k]; };
-  auto wld = [&](int k) { return k == l0 ? pack_ld(in_dims[k]) : ldw[k]; };
+  float* prep = scratch;   // each product's weight, converted (prep_b)
+  scratch += prep_floats(n_layers, in_dims, out_dims);
   constexpr bool bf16 = PREC == PREC_BF16;
   float* bufs[2] = {ap0, ap1};
   // 4. tangent chain along w (bf16: at a unit cotangent, every gradient
@@ -524,14 +527,14 @@ int grad_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
       const TangentEpiBF16 ep = {tans + k * nh,   tnext, curvs + k * nh,
                                  acts + k * nh,   deltas + k * nh,
                                  h,               act,   k == top};
-      sgemm<true, true, PREC>(n, out_dims[k], in_dims[k], 1, tin, tin_ld,
-                              wmat(k), wld(k), ep, stream);
+      sgemm_w<PREC>(n, out_dims[k], in_dims[k], tin, tin_ld, W[k], ldw[k],
+                    false, prep, ep, stream);
       tin = tnext ? tnext : tans + k * nh;
     } else {
       const TangentEpi ep = {tans + k * nh, curvs + k * nh, acts + k * nh,
                              deltas + k * nh, h, act};
-      sgemm<true, true, PREC>(n, out_dims[k], in_dims[k], 1, tin, tin_ld,
-                              wmat(k), wld(k), ep, stream);
+      sgemm_w<PREC>(n, out_dims[k], in_dims[k], tin, tin_ld, W[k], ldw[k],
+                    false, prep, ep, stream);
       tin = tans + k * nh;
     }
     tin_ld = h;
@@ -562,8 +565,7 @@ int grad_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
       float* next = bufs[k & 1];
       const std::conditional_t<bf16, RevEpiBF16, RevEpi> ep = {
           next, acts + (k - 1) * nh, curvs + (k - 1) * nh, h, act};
-      sgemm<true, false, PREC>(n, in, out, 1, ap, h, wmat(k), wld(k), ep,
-                               stream);
+      sgemm_w<PREC>(n, in, out, ap, h, W[k], ldw[k], true, prep, ep, stream);
       ap = next;
     }
   }
@@ -577,7 +579,7 @@ int grad_bwd(int n, int d, int ssz, int n_layers, int l0, int act,
     }
     scale(dctx, (long long)(n / ssz) * ctx_ld);
   }
-  return (int)cudaGetLastError();
+  return launch_status();
 }
 
 }  // namespace

@@ -49,8 +49,7 @@ def build_library():
     lib.fused_dsm_bwd.argtypes = (
         [i] * 6 + [p, p, p, p, p, p, p, p, p, i, p, p, p, p, i, p, p, p, p])
     lib.fused_dsm_bwd.restype = i
-    lib.dsm_sgemm_smem_bytes.argtypes = [i, i]
-    lib.dsm_sgemm_smem_bytes.restype = i
+    native.bind_core(lib)
     return lib, info
 
 

@@ -77,6 +77,7 @@ def build_library():
     lib.fused_dsm_grad_bwd.argtypes = (
         [i] * 7 + [p] * 10 + [i] + [p] * 3 + [i] + [p] * 7)
     lib.fused_dsm_grad_bwd.restype = i
+    native.bind_core(lib)
     return lib, info
 
 

@@ -85,6 +85,19 @@ def load(name):
     return ctypes.CDLL(lib_path(name)), info
 
 
+def bind_core(lib):
+    """Declare the GEMM core's own entry points (csrc/dsm_sgemm.cuh), which
+    every kernel library exports: its shared memory a block, the count of
+    operands its loader copied with cp.async, and the core alone."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.dsm_sgemm_smem_bytes.argtypes = [i, i]
+    lib.dsm_sgemm_smem_bytes.restype = i
+    lib.dsm_sgemm_cp_async_operands.argtypes = []
+    lib.dsm_sgemm_cp_async_operands.restype = ll
+    lib.dsm_sgemm_probe.argtypes = [i] * 6 + [p, i, p, i, p, p, p]
+    lib.dsm_sgemm_probe.restype = i
+
+
 def ptr_array(ts):
     return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 

@@ -7,9 +7,11 @@ Phases (each failure exits non-zero):
   2. builds the hand-written kernels from ardae_tpu_torch/csrc/ with nvcc for
      sm_90a (into build/), one nvcc per source, all started together; prints
      each kernel instantiation's registers, shared memory and spills (from
-     -Xptxas -v) and the GEMM ring's dynamic shared memory, and counts the
-     tensor-core instructions (HMMA) in each library's SASS with cuobjdump,
-     where the toolkit has it: a count of 0 fails;
+     -Xptxas -v) beside its wgmma (HGMMA), mma.sync (HMMA) and TMA load
+     (UTMALDG) instructions, counted in each library's SASS with cuobjdump
+     where the toolkit has it, and the GEMM block's dynamic shared memory. It
+     fails if a library has no HGMMA, or if any instantiation of the GEMM
+     core lacks HGMMA or UTMALDG or has an HMMA left;
   3. holds the res-style fused DSM kernel (forward and backward) against its
      plain PyTorch version, fp32 with TF32 off for every matmul and
      convolution: at the flagship shape (n = 128 x 625 rows, d 32, h 512, 5
@@ -519,6 +521,22 @@ def card_line():
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "unknown"
 
 
+def _short_name(name):
+    """A demangled kernel name without its namespace, return type and
+    arguments, as the phase 2 lines print it."""
+    return name.replace("(anonymous namespace)::", "").split("(")[0].replace(
+        "void ", "").strip()
+
+
+def _demangle(names):
+    filt = shutil.which("c++filt")
+    if not filt or not names:
+        return names
+    out = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    return out if len(out) == len(names) else names
+
+
 def ptxas_report(log):
     """[(kernel, registers, static smem bytes, spill stores, spill loads)]
     of every entry function in an nvcc -Xptxas -v log."""
@@ -532,19 +550,16 @@ def ptxas_report(log):
                      int(smem.group(1)) if smem else 0,
                      int(spill.group(1)) if spill else -1,
                      int(spill.group(2)) if spill else -1))
-    filt = shutil.which("c++filt")
-    if filt and rows:
-        out = subprocess.run([filt], input="\n".join(r[0] for r in rows),
-                             capture_output=True, text=True, timeout=60).stdout
-        names = out.splitlines()
-        if len(names) == len(rows):
-            rows = [(n.replace("(anonymous namespace)::", "").split("(")[0].replace(
-                "void ", ""),) + r[1:] for n, r in zip(names, rows)]
-    return rows
+    names = _demangle([r[0] for r in rows])
+    return [(_short_name(n),) + r[1:] for n, r in zip(names, rows)]
 
 
-def hmma_count(lib):
-    """HMMA instructions in a library's SASS, or None without cuobjdump."""
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG")   # wgmma, mma.sync, TMA loads
+
+
+def sass_counts(lib):
+    """{kernel: {op: count}} of the SASS_OPS in each function of a library's
+    SASS (cuobjdump -sass), or None without cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -552,7 +567,11 @@ def hmma_count(lib):
                          timeout=300)
     if out.returncode != 0:
         fail(f"cuobjdump -sass {lib} failed: {out.stderr[-2000:]}")
-    return sum("HMMA" in ln for ln in out.stdout.splitlines())
+    funcs = re.split(r"\n\s*Function : (\S+)", out.stdout)[1:]
+    mangled, bodies = funcs[0::2], funcs[1::2]
+    counts = [{op: len(re.findall(rf"\b{op}\b", body)) for op in SASS_OPS}
+              for body in bodies]
+    return dict(zip((_short_name(n) for n in _demangle(mangled)), counts))
 
 
 def products(kind, args):
@@ -2855,21 +2874,31 @@ def main():
     for name, inf in info.items():
         print(f"phase 2 build {name}.cu: nvcc sm_90a {inf['seconds']:.1f} s "
               f"(built now: {inf['built']})", flush=True)
+        sass = sass_counts(native.lib_path(name))
+        if sass is None:
+            print(f"phase 2 {name}: cuobjdump not found, instructions not counted",
+                  flush=True)
         for kname, regs, smem, st, ld in ptxas_report(inf["log"]):
+            ops = (sass or {}).get(kname, {})
             print(f"phase 2   {kname}: {regs} registers, {smem} B static smem, "
-                  f"spills {st} B stored / {ld} B loaded", flush=True)
-    lib, _ = fd.build_library()
-    ring = {f"{'K' if a else 'MN'}-contiguous A, {'K' if b else 'MN'}-contiguous B":
-            lib.dsm_sgemm_smem_bytes(a, b) for a, b in ((1, 1), (1, 0), (0, 0))}
-    print(f"phase 2 GEMM ring dynamic smem per block: {ring}", flush=True)
-    for name in info:
-        count = hmma_count(native.lib_path(name))
-        if count is None:
-            print(f"phase 2 {name}: cuobjdump not found, HMMA not counted", flush=True)
+                  f"spills {st} B stored / {ld} B loaded; " + ", ".join(
+                      f"{ops.get(op, 0)} {op}" for op in SASS_OPS), flush=True)
+        if sass is None:
             continue
-        print(f"phase 2 {name}: {count} HMMA instructions in the SASS", flush=True)
-        if count == 0:
-            fail(f"{name} has no tensor-core instruction")
+        total = {op: sum(c[op] for c in sass.values()) for op in SASS_OPS}
+        print(f"phase 2 {name}: {total} in the SASS", flush=True)
+        gemms = {k: c for k, c in sass.items() if k.startswith("sgemm_kernel")}
+        if not gemms or total["HGMMA"] == 0:
+            fail(f"{name} has no wgmma (HGMMA) instruction")
+        for kname, c in gemms.items():
+            if c["HMMA"] or not c["HGMMA"] or not c["UTMALDG"]:
+                fail(f"{name} {kname}: {c}; every GEMM instantiation must issue "
+                     f"wgmma (HGMMA) and TMA loads (UTMALDG), and no mma.sync (HMMA)")
+    lib, _ = fd.build_library()
+    ring = {f"B {'a converted weight' if b else 'M/N-contiguous'}, "
+            f"{'fp32' if p == 0 else 'bf16'}": lib.dsm_sgemm_smem_bytes(b, p)
+            for b in (1, 0) for p in (0, 1)}
+    print(f"phase 2 GEMM block dynamic smem: {ring}", flush=True)
     print(f"phase 2 both built and loaded in {time.perf_counter() - t0:.1f} s",
           flush=True)
 

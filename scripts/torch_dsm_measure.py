@@ -3,6 +3,7 @@
     python3 scripts/torch_dsm_measure.py ab --old DIR [--new DIR]
     python3 scripts/torch_dsm_measure.py time [--tree DIR]
     python3 scripts/torch_dsm_measure.py profile [--tree DIR] [--no-steps]
+    python3 scripts/torch_dsm_measure.py core [--tree DIR]
 
 ``time`` imports ardae_tpu_torch from DIR (default: this checkout), builds
 its kernels there, and prints one JSON line: the median of 7 CUDA-event
@@ -16,7 +17,11 @@ compared in one call share one card: the only fair comparison.
 ``profile`` traces with torch.profiler one forward + backward of each
 kernel at its line's shape and one steady step of each line, and prints
 the device time by kernel name and the device's busy share of the traced
-span. Each line names the card and its power limit. Every number needs a
+span. ``core`` times the shared GEMM core alone (its probe entry point,
+csrc/dsm_sgemm.cuh dsm_sgemm_probe) at the lines' h x h and weight-gradient
+shapes, in both precisions, as TFLOP/s of fp32 products (3xTF32 issues
+three TF32 products for each). Each line names the card and its power
+limit. Every number needs a
 CUDA device: without one this script exits 2.
 """
 
@@ -103,6 +108,55 @@ def cmd_time(a):
     return 0
 
 
+# The GEMM core's products at the lines' shapes: (what, K-contiguous, M, N,
+# K); the weight gradients split K as the kernels do (wgrad_splits)
+CORE_CASES = (("h x h product, flagship (h 512)", 1, 80000, 512, 512),
+              ("h x h product, implicit conv (h 256)", 1, 80000, 256, 256),
+              ("weight gradient, flagship", 0, 512, 512, 80000),
+              ("weight gradient, implicit conv", 0, 256, 256, 80000))
+
+
+def wgrad_splits(M, N, K, bk=32, units=264):
+    """The split count csrc/dsm_sgemm.cuh wgrad_splits gives."""
+    cdiv = lambda x, y: -(-x // y)
+    split_len = lambda S: max(bk, cdiv(cdiv(K, S), bk) * bk)
+    S = max(1, min(units // (cdiv(M, 128) * cdiv(N, 128)), cdiv(K, 16 * bk)))
+    return max(1, cdiv(K, split_len(S)))
+
+
+def cmd_core(a):
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    cs, _, fd, _, native = import_port(a.tree)
+    native.build(["fused_dsm"])
+    lib, _ = fd.build_library()
+    card = cs.card_line()
+    stream = torch.cuda.current_stream().cuda_stream
+    for prec, pname in ((0, "fp32 (3xTF32)"), (1, "bf16")):
+        for what, kc, M, N, K in CORE_CASES:
+            S = 1 if kc else wgrad_splits(M, N, K)
+            x = torch.randn((M, K) if kc else (K, M), device="cuda")
+            y = torch.randn((N, K) if kc else (K, N), device="cuda")
+            c = torch.empty(S * M * N, device="cuda")
+            scratch = torch.empty(2 * N * K + 64, device="cuda")
+
+            def run():
+                if lib.dsm_sgemm_probe(kc, prec, M, N, K, S, x.data_ptr(), x.stride(0),
+                                       y.data_ptr(), y.stride(0), c.data_ptr(),
+                                       scratch.data_ptr(), stream):
+                    raise RuntimeError("dsm_sgemm_probe failed")
+
+            ms = cs.time_ms(torch, run, reps=11)
+            print(f"core {pname} {what}: M {M} N {N} K {K} splits {S}: {ms:.4f} ms, "
+                  f"{2 * M * N * K / ms / 1e9:.1f} TFLOP/s of fp32 products "
+                  f"(median of 11; the weight's conversion included) | {card}",
+                  flush=True)
+    return 0
+
+
 def cmd_ab(a):
     turns = [("old", a.old), ("new", a.new), ("new", a.new), ("old", a.old)]
     rows = []
@@ -127,16 +181,18 @@ def cmd_ab(a):
 
 def short_name(name):
     """'sgemm_kernel<true, true, FwdEpi, 0>' -> 'sgemm FwdEpi' (the bf16
-    products, precision 1: 'sgemm FwdEpi bf16'); else the bare function
-    name."""
+    products, precision 1: 'sgemm FwdEpi bf16'); 'prep_b_kernel<1>' ->
+    'prep_b bf16'; else the bare function name."""
     name = name.replace("(anonymous namespace)::", "")
     m = re.search(r"(\w+)(<[^()]*>)?\(", name)
     if not m:
         return name[:40]
-    if m.group(2):
-        *_, epi, prec = (a.strip() for a in m.group(2)[1:-1].split(","))
-        return f"{m.group(1).replace('_kernel', '')} {epi}" + (" bf16" if prec == "1" else "")
-    return m.group(1).replace("_kernel", "")
+    args = [a.strip() for a in m.group(2)[1:-1].split(",")] if m.group(2) else []
+    base = m.group(1).replace("_kernel", "")
+    if len(args) >= 2:   # sgemm_kernel<A_KC, B_KC, Epi, PREC>
+        *_, epi, prec = args
+        return f"{base} {epi}" + (" bf16" if prec == "1" else "")
+    return base + (" bf16" if args == ["1"] else "")   # prep_b_kernel<PREC>
 
 
 def device_events(torch, prof):
@@ -246,12 +302,15 @@ def main():
     b = sub.add_parser("ab")
     b.add_argument("--old", required=True)
     b.add_argument("--new", default=ROOT)
+    c = sub.add_parser("core")
+    c.add_argument("--tree", default=ROOT)
     f = sub.add_parser("profile")
     f.add_argument("--tree", default=ROOT)
     f.add_argument("--no-steps", action="store_true",
                    help="trace the kernels only, not the lines' steps")
     a = p.parse_args()
-    return {"time": cmd_time, "ab": cmd_ab, "profile": cmd_profile}[a.cmd](a)
+    return {"time": cmd_time, "ab": cmd_ab, "core": cmd_core,
+            "profile": cmd_profile}[a.cmd](a)
 
 
 if __name__ == "__main__":

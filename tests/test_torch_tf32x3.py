@@ -4,8 +4,9 @@
 The core runs every fp32 product of both DSM kernels as 3xTF32: each operand
 x is split as hi = tf32(x), lo = tf32(x - hi) (``cvt.rna.tf32.f32``: round to
 nearest, ties away from zero, on the 13 mantissa bits TF32 drops), and each
-``mma.sync.m16n8k8`` k-step adds lo*hi, then hi*lo, then hi*hi into one fp32
-accumulator; a weight gradient sums its split-K partials in a fixed order.
+8-deep k-step (one ``wgmma`` m64n128k8 TF32 product a term) adds lo*hi, then
+hi*lo, then hi*hi into an fp32 accumulator; a weight gradient sums its
+split-K partials in a fixed order.
 This file emulates that arithmetic in plain PyTorch (one 8-deep k-step at a
 time, in fp32) at the lines' layer shapes with the rows cut, in the three
 operand layouts the core serves (forward x.W^T, input gradient dp.W, weight
