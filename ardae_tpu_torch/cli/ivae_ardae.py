@@ -33,7 +33,8 @@ visualization cadence nor a resume shifts the training noise.
 ``--dp-devices N`` / ``--sp-devices M`` train on a (data, sample) mesh of
 N x M ranks (parallel/, train/step.py; JAX's checks and log line), rank 0
 in this process. ``--profile-dir DIR`` writes a ``torch.profiler`` Chrome
-trace of the first chunk after iteration 0 into DIR (rank 0's). Jacobian
+trace of the first chunk after iteration 0 into DIR (rank 0's), with the
+step's ``ardae.*`` spans (utils/tracing.py) in it. Jacobian
 clamping (``--lmbd-*``) and ``--cdae mlp``, which the JAX driver refuses
 too, raise NotImplementedError; no flag is ignored in silence.
 ``--dataset`` also takes ``mnist32`` (gray 32 x 32, with ``--nheight

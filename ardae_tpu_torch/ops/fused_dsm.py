@@ -27,6 +27,7 @@ import torch
 
 from ardae_tpu_torch.models.cdae.cardae import dsm_noise, perturb
 from ardae_tpu_torch.ops import native
+from ardae_tpu_torch.utils.tracing import span
 
 ACTS = {"softplus": 0, "relu": 1, "tanh": 2}
 
@@ -98,7 +99,7 @@ class FusedDSMFunction(torch.autograd.Function):
                                                  native.int_array(out_dims))
         scratch = torch.empty(n_scratch, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        with torch.profiler.record_function("fused_dsm_fwd"):  # its name in a trace
+        with span("fused_dsm_fwd"):  # its name in a trace
             err = lib.fused_dsm_fwd(
                 n, d, n // bsz, L, l0, ACTS[act], xbar.data_ptr(), eps.data_ptr(),
                 sigma.data_ptr(), ctx_l0.data_ptr(), h, native.ptr_array(ws), native.ptr_array(bs),
@@ -129,7 +130,7 @@ class FusedDSMFunction(torch.autograd.Function):
         dp1 = torch.empty((n, width), device=dev)
         scratch = torch.empty(n_scratch, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        with torch.profiler.record_function("fused_dsm_bwd"):  # its name in a trace
+        with span("fused_dsm_bwd"):  # its name in a trace
             err = lib.fused_dsm_bwd(
                 n, d, n // ctx.bsz, len(ws), ctx.l0, ACTS[ctx.act],
                 xbar.data_ptr(), eps.data_ptr(), sigma.data_ptr(), g.data_ptr(),

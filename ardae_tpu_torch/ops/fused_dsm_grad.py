@@ -52,6 +52,7 @@ from ardae_tpu_torch.ops.fused_dsm import (
     chain_reference,
     prepare_inputs,
 )
+from ardae_tpu_torch.utils.tracing import span
 
 # the kernel's precision argument of each compute mode (csrc Prec)
 COMPUTE_DTYPES = {"float32": 0, "bfloat16": 1}
@@ -120,7 +121,7 @@ def _launch_forward(fn, ctx, act, l0, xbar, eps, sigma, ctx_l0, flat):
     scratch = torch.empty(n_scratch, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     entry, _ = fn.launches  # its (forward, backward) names, in order
-    with torch.profiler.record_function(entry):  # its name in a trace
+    with span(entry):  # its name in a trace
         err = lib.fused_dsm_grad_fwd(
             n, d, n // bsz, L, l0, ACTS[act], COMPUTE_DTYPES[fn.compute_dtype],
             xbar.data_ptr(), eps.data_ptr(), sigma.data_ptr(), ctx_l0.data_ptr(),
@@ -158,7 +159,7 @@ def _launch_backward(fn, ctx, g):
     scratch = torch.empty(n_scratch, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _, entry = fn.launches  # its (forward, backward) names, in order
-    with torch.profiler.record_function(entry):  # its name in a trace
+    with span(entry):  # its name in a trace
         err = lib.fused_dsm_grad_bwd(
             n, d, n // ctx.bsz, len(ws), ctx.l0, ACTS[ctx.act],
             COMPUTE_DTYPES[fn.compute_dtype], xbar.data_ptr(), sigma.data_ptr(),

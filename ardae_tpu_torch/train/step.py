@@ -16,6 +16,9 @@ batch gather and the Bernoulli binarization on the device. Every random draw
 can be injected (``draws``); otherwise it comes from the explicit generator.
 After each step, ``update_weight_avg`` moves the averaged model (Polyak or
 SWA) in a few ``torch._foreach_*`` passes.
+The step, its index upload and gathers, each phase-A update (its sampling
+pass and its DSM loss) and phase B run inside ``ardae.*`` spans
+(utils/tracing.py), which record only while a profiler records.
 
 Mixed precision follows the JAX twin (step.py:41-85, :114-264):
 ``cdae_compute_dtype='bfloat16'`` runs phase A's sampling pass, its
@@ -51,6 +54,7 @@ from ardae_tpu_torch.ops.fused_dsm_grad import (
     supports_fused_dsm_grad,
 )
 from ardae_tpu_torch.parallel.mesh import local
+from ardae_tpu_torch.utils.tracing import span
 
 # --use-kernels: each cdae style's hand-written kernel and the guard that
 # decides whether it covers a cdae
@@ -182,44 +186,51 @@ def cdae_update(model, cdae, opt_d, cfg, x, generator, draws=None, mesh=None):
     ``mesh``. Returns the metrics (detached tensors)."""
     draws = draws or {}
     bsz = x.shape[0]
-    lsm, sigma, latent_mean, net, x_c = _sigma_stats(
-        model, x, cfg, generator, draws.get("latent_eps"), mesh)
-    if cfg.ctx_type == "lt0":
-        # the std=0 encoding doubles as the context (ivae_ardae.py:735+748)
-        ctx = latent_mean.reshape(bsz, -1)
-    elif cfg.ctx_type == "hidden1a":
-        # the std=0 features of the sigma pass's parameters and input, in
-        # its dtype, then fp32 (JAX step.py:157-160)
-        ctx = compute_context(net, x_c, cfg.ctx_type).float()
-    else:
-        ctx = compute_context(model, x, cfg.ctx_type)
-    nz, nstd, zdim = lsm.shape[1], cfg.train_nstd_cdae, lsm.shape[-1]
-    # the world's items and samples an item; this rank has bsz and nz * nstd
-    full, ns = bsz * (1 if mesh is None else mesh.dp), cfg.train_nz_cdae * nstd
-    std = _randn((full, ns, 1), generator, x.device, draws.get("std"))
-    stdmat = sigma * local(mesh, std, 0, 1)
-    lsm_exp = lsm if nstd == 1 else (
-        lsm[:, :, None, :].expand(bsz, nz, nstd, zdim).reshape(bsz, nz * nstd, zdim))
-    eps = _local_rows(mesh, dsm_noise((full * ns, zdim), generator,
-                                      draws.get("dsm_eps"), x.device,
-                                      cfg.noise_type), full, ns, True)
-    if cfg.use_kernels:
-        # the kernels take any of cdae_loss's noises (JAX runs XLA for a
-        # non-Gaussian one, step.py:191: the same function)
-        loss_fn = _phase_a_kernel(cdae, bsz * nz * nstd, cfg.cdae_compute_dtype)
-        loss = loss_fn(cdae, lsm_exp, ctx, stdmat, eps=eps,
-                       noise_type=cfg.noise_type)
-    else:
-        loss = cdae_loss(cdae, lsm_exp, ctx, stdmat, eps=eps,
-                         compute_dtype=cfg.cdae_compute_dtype,
-                         noise_type=cfg.noise_type)
-    opt_d.zero_grad(set_to_none=True)
-    loss.backward()
-    if mesh is not None:
-        mesh.average_grads(cdae.parameters())
-    opt_d.step()
-    return {"cdae_loss": loss.detach(), "std_eff_mean": sigma.mean(),
-            "std_eff_max": sigma.max(), "std_eff_min": sigma.min()}
+    with span("ardae.phase_a"):
+        # the sampling pass, the context and the DSM noise
+        with span("ardae.sample"):
+            lsm, sigma, latent_mean, net, x_c = _sigma_stats(
+                model, x, cfg, generator, draws.get("latent_eps"), mesh)
+            if cfg.ctx_type == "lt0":
+                # the std=0 encoding doubles as the context (ivae_ardae.py:735+748)
+                ctx = latent_mean.reshape(bsz, -1)
+            elif cfg.ctx_type == "hidden1a":
+                # the std=0 features of the sigma pass's parameters and input, in
+                # its dtype, then fp32 (JAX step.py:157-160)
+                ctx = compute_context(net, x_c, cfg.ctx_type).float()
+            else:
+                ctx = compute_context(model, x, cfg.ctx_type)
+            nz, nstd, zdim = lsm.shape[1], cfg.train_nstd_cdae, lsm.shape[-1]
+            # the world's items and samples an item; this rank has bsz and nz * nstd
+            full, ns = bsz * (1 if mesh is None else mesh.dp), cfg.train_nz_cdae * nstd
+            std = _randn((full, ns, 1), generator, x.device, draws.get("std"))
+            stdmat = sigma * local(mesh, std, 0, 1)
+            lsm_exp = lsm if nstd == 1 else (
+                lsm[:, :, None, :].expand(bsz, nz, nstd, zdim).reshape(bsz, nz * nstd, zdim))
+            eps = _local_rows(mesh, dsm_noise((full * ns, zdim), generator,
+                                              draws.get("dsm_eps"), x.device,
+                                              cfg.noise_type), full, ns, True)
+            stats = {"std_eff_mean": sigma.mean(), "std_eff_max": sigma.max(),
+                     "std_eff_min": sigma.min()}
+        # the DSM loss, forward and backward
+        with span("ardae.dsm"):
+            if cfg.use_kernels:
+                # the kernels take any of cdae_loss's noises (JAX runs XLA for a
+                # non-Gaussian one, step.py:191: the same function)
+                loss_fn = _phase_a_kernel(cdae, bsz * nz * nstd, cfg.cdae_compute_dtype)
+                loss = loss_fn(cdae, lsm_exp, ctx, stdmat, eps=eps,
+                               noise_type=cfg.noise_type)
+            else:
+                loss = cdae_loss(cdae, lsm_exp, ctx, stdmat, eps=eps,
+                                 compute_dtype=cfg.cdae_compute_dtype,
+                                 noise_type=cfg.noise_type)
+            opt_d.zero_grad(set_to_none=True)
+            loss.backward()
+            metrics = {"cdae_loss": loss.detach(), **stats}
+        if mesh is not None:
+            mesh.average_grads(cdae.parameters())
+        opt_d.step()
+    return metrics
 
 
 def model_update(model, cdae, opt_m, cfg, x, beta, generator, draws=None,
@@ -228,32 +239,33 @@ def model_update(model, cdae, opt_m, cfg, x, beta, generator, draws=None,
     ``draws``: optional injected ``eps`` (B*nz, noise_dim; an aux model's
     pair), at the global batch's shape."""
     draws = draws or {}
-    bsz, nz = x.shape[0], cfg.train_nz_model
-    eps = _encoder_noise(model, x, nz, generator, draws.get("eps"), mesh, False)
-    model_loss, terms = ivae_api.ivae_loss(
-        model, x, nz, beta=beta, generator=generator, eps=eps,
-        compute_dtype=cfg.model_compute_dtype)
-    z = terms["z"]
-    with torch.no_grad():
-        # the detached passes in phase B's dtype, then fp32 (JAX
-        # step.py:238-251)
-        net = cast_module(model, cfg.model_compute_dtype)
-        x_det = cast_input(x, cfg.model_compute_dtype)
-        latent_mean = ivae_api.encode_det(net, x_det).float()
-        ctx = (latent_mean.reshape(bsz, -1) if cfg.ctx_type == "lt0"
-               else compute_context(net, x_det, cfg.ctx_type).float())
-        score = cdae_score(cdae, cfg.std_scale * (z - latent_mean), ctx, 0.0)
-    aux = torch.sum(score * (cfg.std_scale * (z - latent_mean)))
-    # the rank's own bsz: its loss is a mean over its part, and the world's
-    # average of the parts' gradients is the whole batch's
-    total = model_loss + beta * aux / (bsz * nz)
-    opt_m.zero_grad(set_to_none=True)
-    total.backward()
-    if mesh is not None:
-        mesh.average_grads(model.parameters())
-    opt_m.step()
-    return {"model_loss": model_loss.detach(), "recon_loss": terms["recon"].detach(),
-            "prior_loss": terms["prior"].detach()}
+    with span("ardae.phase_b"):
+        bsz, nz = x.shape[0], cfg.train_nz_model
+        eps = _encoder_noise(model, x, nz, generator, draws.get("eps"), mesh, False)
+        model_loss, terms = ivae_api.ivae_loss(
+            model, x, nz, beta=beta, generator=generator, eps=eps,
+            compute_dtype=cfg.model_compute_dtype)
+        z = terms["z"]
+        with torch.no_grad():
+            # the detached passes in phase B's dtype, then fp32 (JAX
+            # step.py:238-251)
+            net = cast_module(model, cfg.model_compute_dtype)
+            x_det = cast_input(x, cfg.model_compute_dtype)
+            latent_mean = ivae_api.encode_det(net, x_det).float()
+            ctx = (latent_mean.reshape(bsz, -1) if cfg.ctx_type == "lt0"
+                   else compute_context(net, x_det, cfg.ctx_type).float())
+            score = cdae_score(cdae, cfg.std_scale * (z - latent_mean), ctx, 0.0)
+        aux = torch.sum(score * (cfg.std_scale * (z - latent_mean)))
+        # the rank's own bsz: its loss is a mean over its part, and the world's
+        # average of the parts' gradients is the whole batch's
+        total = model_loss + beta * aux / (bsz * nz)
+        opt_m.zero_grad(set_to_none=True)
+        total.backward()
+        if mesh is not None:
+            mesh.average_grads(model.parameters())
+        opt_m.step()
+        return {"model_loss": model_loss.detach(), "recon_loss": terms["recon"].detach(),
+                "prior_loss": terms["prior"].detach()}
 
 
 def one_step(state, cfg, cdae_batches, model_batch, beta, generator, draws=None,
@@ -321,12 +333,16 @@ def train_chunk(state, cfg, data, cdae_idx, model_idx, generator, beta_fn,
     metrics = None
     for k in range(len(model_idx)):
         d = draws[k] if draws else {}
-        c_idx = torch.as_tensor(cdae_idx[k], device=data.device)
-        m_idx = torch.as_tensor(model_idx[k], device=data.device)
-        cdae_batches = gather_batches(data, c_idx, binarize, generator,
-                                      d.get("bin_cdae"), mesh, items_axis=1)
-        model_batch = gather_batches(data, m_idx, binarize, generator,
-                                     d.get("bin_model"), mesh)
-        metrics = one_step(state, cfg, cdae_batches, model_batch,
-                           beta_fn(state.step), generator, d.get("step"), mesh)
+        with span("ardae.step", step=state.step):
+            # the step's indices, host to device: the copy waits for the stream
+            with span("ardae.upload"):
+                c_idx = torch.as_tensor(cdae_idx[k], device=data.device)
+                m_idx = torch.as_tensor(model_idx[k], device=data.device)
+            with span("ardae.gather"):
+                cdae_batches = gather_batches(data, c_idx, binarize, generator,
+                                              d.get("bin_cdae"), mesh, items_axis=1)
+                model_batch = gather_batches(data, m_idx, binarize, generator,
+                                             d.get("bin_model"), mesh)
+            metrics = one_step(state, cfg, cdae_batches, model_batch,
+                               beta_fn(state.step), generator, d.get("step"), mesh)
     return metrics if mesh is None or metrics is None else mesh.reduce_metrics(metrics)

@@ -144,6 +144,31 @@ def test_profile_dir_writes_a_trace_and_trains_the_same(tmp_path):
     assert {"aten::mm", "aten::addmm"} & names
 
 
+def test_profile_dir_trace_holds_the_ports_spans(tmp_path):
+    """--profile-dir: the Chrome trace holds the port's spans, each
+    ardae.step holding an ardae.phase_a that holds ardae.sample and
+    ardae.dsm, and the run logs the same numbers as one without it."""
+    prof = tmp_path / "prof"
+    args = ["--max-iters", "10", "--log-interval", "5"]
+    _, _, log = _run(ivae_ardae, tmp_path, "plain", *args)
+    _, _, log_p = _run(ivae_ardae, tmp_path, "prof", *args, "--profile-dir", str(prof))
+    strip = lambda s: [re.sub(r"ms/step\s+\S+", "", ln) for ln in s.splitlines()
+                       if ln.startswith("| iter ")]
+    assert strip(log_p) == strip(log) and len(strip(log)) == 2
+    (trace,) = glob.glob(str(prof / "*.json"))
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    ivs = lambda name: [(e["ts"], e["ts"] + e["dur"]) for e in events if e["name"] == name]
+    within = lambda inner, outer: any(o[0] <= i[0] and i[1] <= o[1]
+                                      for i in inner for o in outer)
+    steps = ivs("ardae.step")
+    assert len(steps) == 5  # the profiled chunk: iterations 6-10
+    for step in steps:
+        (a,) = [p for p in ivs("ardae.phase_a") if within([p], [step])]
+        assert within(ivs("ardae.sample"), [a]) and within(ivs("ardae.dsm"), [a])
+
+
 def test_entry_is_finite():
     """JAX's tests/test_graft_entry.py:9-14: the forward step of the conv
     IVAE (on the CPU, as asked)."""
