@@ -20,6 +20,16 @@ The step, its index upload and gathers, each phase-A update (its sampling
 pass and its DSM loss) and phase B run inside ``ardae.*`` spans
 (utils/tracing.py), which record only while a profiler records.
 
+Phase B on a CUDA device, with no mesh and under one of the port's own
+optimizers (``train/optim.py`` ``Replayable``), is one CUDA graph
+(``PhaseBGraph``): its device work (the loss, the detached passes, the
+surrogate, the backward and the optimizer's step) is captured at the first
+phase B and replayed at every one after: one launch in place of one a
+kernel. The batch, the encoder noise and beta go into static buffers
+first, the noise drawn in the eager path's order; the graph is captured
+again when what it reads moves. On the CPU, under a mesh or with another
+optimizer, phase B runs eagerly.
+
 Mixed precision follows the JAX twin (step.py:41-85, :114-264):
 ``cdae_compute_dtype='bfloat16'`` runs phase A's sampling pass, its
 hidden1a context and the DSM loss's score net on bf16 copies of the fp32
@@ -54,6 +64,7 @@ from ardae_tpu_torch.ops.fused_dsm_grad import (
     supports_fused_dsm_grad,
 )
 from ardae_tpu_torch.parallel.mesh import local
+from ardae_tpu_torch.train.optim import Replayable
 from ardae_tpu_torch.utils.tracing import span
 
 # --use-kernels: each cdae style's hand-written kernel and the guard that
@@ -233,39 +244,170 @@ def cdae_update(model, cdae, opt_d, cfg, x, generator, draws=None, mesh=None):
     return metrics
 
 
+def _phase_b_loss(model, cdae, cfg, x, beta, eps):
+    """Phase B's objective: ELBO-without-entropy plus the surrogate whose
+    gradient is the injected entropy gradient. Returns (total, metrics)."""
+    bsz, nz = x.shape[0], cfg.train_nz_model
+    model_loss, terms = ivae_api.ivae_loss(
+        model, x, nz, beta=beta, eps=eps, compute_dtype=cfg.model_compute_dtype)
+    z = terms["z"]
+    with torch.no_grad():
+        # the detached passes in phase B's dtype, then fp32 (JAX
+        # step.py:238-251)
+        net = cast_module(model, cfg.model_compute_dtype)
+        x_det = cast_input(x, cfg.model_compute_dtype)
+        latent_mean = ivae_api.encode_det(net, x_det).float()
+        ctx = (latent_mean.reshape(bsz, -1) if cfg.ctx_type == "lt0"
+               else compute_context(net, x_det, cfg.ctx_type).float())
+        # the score at noise level 0, a device zero: a host scalar would be
+        # copied from pageable memory, which a capture refuses
+        score = cdae_score(cdae, cfg.std_scale * (z - latent_mean), ctx,
+                           x.new_zeros((), dtype=torch.float32))
+    aux = torch.sum(score * (cfg.std_scale * (z - latent_mean)))
+    # the rank's own bsz: its loss is a mean over its part, and the world's
+    # average of the parts' gradients is the whole batch's
+    total = model_loss + beta * aux / (bsz * nz)
+    return total, {"model_loss": model_loss.detach(),
+                   "recon_loss": terms["recon"].detach(),
+                   "prior_loss": terms["prior"].detach()}
+
+
+class PhaseBGraph:
+    """Phase B's device work captured once into a CUDA graph and replayed
+    each step: the encoder noise's use, ``_phase_b_loss``, the backward and
+    the optimizer's ``replay_step``, on static buffers (the batch, the
+    encoder noise, beta as a 0-d tensor) that ``fill`` writes before each
+    replay. Kept by the model's optimizer; captured again when ``reads``
+    changes: the configuration, the batch's shape and dtype, or the address
+    of a tensor it reads (the model's, the cdae's, the optimizer's state,
+    which ``load_state_dict`` replaces). The metrics it returns are its
+    static outputs, overwritten by the next replay."""
+
+    def __init__(self, model, cdae, opt_m, cfg, x):
+        self.reads = self._reads(model, cdae, opt_m, cfg, x)
+        rows = x.shape[0] * cfg.train_nz_model
+        widths = ((model.noise_dim, model.z_dim) if model.family == "aux"
+                  else (model.noise_dim,))
+        self.x = torch.empty_like(x)
+        self.eps = tuple(torch.empty((rows, w), device=x.device) for w in widths)
+        self.beta = torch.zeros((), device=x.device)
+        self.graph = self.metrics = None
+
+    @staticmethod
+    def _reads(model, cdae, opt_m, cfg, x):
+        tensors = [*model.parameters(), *model.buffers(), *cdae.parameters(),
+                   *cdae.buffers()]
+        tensors += [v for st in opt_m.state.values() for v in st.values()
+                    if torch.is_tensor(v)]
+        # the groups' settings the capture holds (the rate is filled each step)
+        settings = tuple((k, v) for g in opt_m.param_groups for k, v in g.items()
+                         if k not in ("params", "lr"))
+        return (opt_m.state, cfg, x.shape, x.dtype, x.device, settings,
+                tuple(t.data_ptr() for t in tensors))
+
+    def current(self, model, cdae, opt_m, cfg, x):
+        """Whether the captured graph still reads what phase B would."""
+        now = self._reads(model, cdae, opt_m, cfg, x)
+        # the optimizer's state by identity: ``load_state_dict`` replaces it
+        return now[0] is self.reads[0] and now[1:] == self.reads[1:]
+
+    def fill(self, x, beta, generator, injected=None):
+        """The step's inputs into the static buffers: the batch, the encoder
+        noise (injected, or drawn as ``make_eps`` draws it, so the
+        generator moves as in the eager path) and beta."""
+        self.x.copy_(x)
+        if injected is None:
+            if generator is None:
+                raise ValueError("phase B needs a generator or an injected eps")
+            for buf in self.eps:
+                torch.randn(buf.shape, generator=generator, out=buf)
+        else:
+            draws = tuple(injected) if isinstance(injected, (tuple, list)) else (injected,)
+            for buf, e in zip(self.eps, draws):
+                buf.copy_(e.reshape(buf.shape))
+        self.beta.fill_(beta)
+
+    def loss_backward(self, model, cdae, cfg):
+        """The loss on the static buffers and its backward; the metrics."""
+        injected = self.eps if model.family == "aux" else self.eps[0]
+        eps = _encoder_noise(model, self.x, cfg.train_nz_model, None, injected, None, False)
+        total, metrics = _phase_b_loss(model, cdae, cfg, self.x, self.beta, eps)
+        total.backward()
+        return metrics
+
+    def body(self, model, cdae, opt_m, cfg):
+        """The device work the graph holds (run eagerly, the same work on
+        any device): fresh gradients, then the optimizer's replayed step,
+        whose scalars ``opt_m.fill_replay`` set."""
+        opt_m.zero_grad(set_to_none=True)
+        metrics = self.loss_backward(model, cdae, cfg)
+        opt_m.replay_step()
+        return metrics
+
+    def capture(self, model, cdae, opt_m, cfg):
+        """Warm up on a side stream (the forward and backward once: nothing
+        drawn, nothing updated, the gradients dropped), prepare the
+        optimizer (its state made before capture), then capture ``body``.
+        Raises where the capture fails."""
+        side = torch.cuda.Stream(device=self.x.device)
+        side.wait_stream(torch.cuda.current_stream(self.x.device))
+        with torch.cuda.stream(side):
+            opt_m.zero_grad(set_to_none=True)
+            self.loss_backward(model, cdae, cfg)
+        torch.cuda.current_stream(self.x.device).wait_stream(side)
+        opt_m.prepare_replay()
+        opt_m.zero_grad(set_to_none=True)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.metrics = self.body(model, cdae, opt_m, cfg)
+        # the optimizer's state, made above, is read from here on
+        self.reads = self._reads(model, cdae, opt_m, cfg, self.x)
+
+    def run(self, model, cdae, opt_m, cfg, x, beta, generator, injected=None):
+        """One phase B: fill, capture where not yet captured, replay."""
+        self.fill(x, beta, generator, injected)
+        if self.graph is None:
+            with span("ardae.phase_b.capture"):
+                self.capture(model, cdae, opt_m, cfg)
+                opt_m.fill_replay()
+                self.graph.replay()
+        else:
+            opt_m.fill_replay()
+            with span("ardae.phase_b.replay"):
+                self.graph.replay()
+        return dict(self.metrics)
+
+
+def _phase_b_graph(model, cdae, opt_m, cfg, x):
+    """The model optimizer's phase-B graph, made anew where it no longer
+    reads what this phase B would."""
+    graph = getattr(opt_m, "phase_b_graph", None)
+    if graph is None or not graph.current(model, cdae, opt_m, cfg, x):
+        opt_m.phase_b_graph = None  # the old graph's pool goes first
+        graph = opt_m.phase_b_graph = PhaseBGraph(model, cdae, opt_m, cfg, x)
+    return graph
+
+
 def model_update(model, cdae, opt_m, cfg, x, beta, generator, draws=None,
                  mesh=None):
     """PHASE B, in place: ELBO-without-entropy + injected entropy gradient.
     ``draws``: optional injected ``eps`` (B*nz, noise_dim; an aux model's
-    pair), at the global batch's shape."""
+    pair), at the global batch's shape. A replayed CUDA graph where it
+    engages (the module's docstring), else eager."""
     draws = draws or {}
     with span("ardae.phase_b"):
-        bsz, nz = x.shape[0], cfg.train_nz_model
-        eps = _encoder_noise(model, x, nz, generator, draws.get("eps"), mesh, False)
-        model_loss, terms = ivae_api.ivae_loss(
-            model, x, nz, beta=beta, generator=generator, eps=eps,
-            compute_dtype=cfg.model_compute_dtype)
-        z = terms["z"]
-        with torch.no_grad():
-            # the detached passes in phase B's dtype, then fp32 (JAX
-            # step.py:238-251)
-            net = cast_module(model, cfg.model_compute_dtype)
-            x_det = cast_input(x, cfg.model_compute_dtype)
-            latent_mean = ivae_api.encode_det(net, x_det).float()
-            ctx = (latent_mean.reshape(bsz, -1) if cfg.ctx_type == "lt0"
-                   else compute_context(net, x_det, cfg.ctx_type).float())
-            score = cdae_score(cdae, cfg.std_scale * (z - latent_mean), ctx, 0.0)
-        aux = torch.sum(score * (cfg.std_scale * (z - latent_mean)))
-        # the rank's own bsz: its loss is a mean over its part, and the world's
-        # average of the parts' gradients is the whole batch's
-        total = model_loss + beta * aux / (bsz * nz)
+        if mesh is None and x.is_cuda and isinstance(opt_m, Replayable):
+            graph = _phase_b_graph(model, cdae, opt_m, cfg, x)
+            return graph.run(model, cdae, opt_m, cfg, x, beta, generator, draws.get("eps"))
+        eps = _encoder_noise(model, x, cfg.train_nz_model, generator, draws.get("eps"),
+                             mesh, False)
+        total, metrics = _phase_b_loss(model, cdae, cfg, x, beta, eps)
         opt_m.zero_grad(set_to_none=True)
         total.backward()
         if mesh is not None:
             mesh.average_grads(model.parameters())
         opt_m.step()
-        return {"model_loss": model_loss.detach(), "recon_loss": terms["recon"].detach(),
-                "prior_loss": terms["prior"].detach()}
+        return metrics
 
 
 def one_step(state, cfg, cdae_batches, model_batch, beta, generator, draws=None,

@@ -4,7 +4,8 @@ step size lr*sqrt(bc2)/bc1; not torch.optim.Adam), the vendored AdamW law
 (decoupled decay, eps before the bias-correction division) and torch's
 RMSprop law, each with a constant rate and under step_lr.
 fp32, rtol 1e-5 / atol 1e-7 (the port's bias corrections are computed in
-double on the host, the JAX ones in fp32)."""
+double on the host, the JAX ones in fp32). Also the step a CUDA graph
+replays against the eager ``step``."""
 
 import jax
 import numpy as np
@@ -118,3 +119,53 @@ def test_adam_is_not_torch_adam():
         p.grad = torch.full((3,), 0.01)
         o.step()
     assert not torch.allclose(p1, p2)
+
+
+_REPLAYED = {
+    "adam": lambda ps, lr: topt.torch_adam(ps, lr, b1=0.5),
+    "amsgrad": lambda ps, lr: topt.torch_adam(ps, lr, b1=0.5, amsgrad=True),
+    "adamw": lambda ps, lr: topt.torch_adamw(ps, lr, b1=0.9, weight_decay=0.1),
+    "rmsprop": lambda ps, lr: topt.torch_rmsprop(ps, lr, momentum=0.9),
+}
+
+
+@pytest.mark.parametrize("name", list(_REPLAYED))
+def test_replayed_step_matches_step(name):
+    """The step a CUDA graph replays (``prepare_replay``, then
+    ``fill_replay`` and ``replay_step`` each step: the scalars read from 0-d
+    tensors, the update in ``torch._foreach_*`` passes) against ``step`` over
+    30 steps under step_lr (the rate halves every 7 updates down to a
+    floor): parameters and state within 1e-6 relative, the same counts."""
+    shapes = {"w": (3, 4), "b": (4,), "c": (2, 3, 5)}
+    sides = []
+    for _ in range(2):
+        ps = [torch.nn.Parameter(torch.tensor(rand(i, *s))) for i, s in enumerate(shapes.values())]
+        sides.append((ps, _REPLAYED[name](ps, topt.step_lr(1e-2, 7, 0.5, min_lr=2e-3))))
+    (pe, oe), (pr, orp) = sides
+    for s in range(30):
+        for i, (p, q) in enumerate(zip(pe, pr)):
+            g = torch.tensor(rand(100 * s + i, *p.shape, scale=0.1 * (s % 4 + 1)))
+            p.grad, q.grad = g, g.clone()
+        oe.step()
+        if s == 0:
+            orp.prepare_replay()
+        orp.fill_replay()
+        orp.replay_step()
+    for p, q in zip(pe, pr):
+        close(q.detach(), p.detach().numpy(), 1e-6, 0.0)
+        assert orp.state[q]["count"] == oe.state[p]["count"] == 30
+        for k, v in oe.state[p].items():
+            if torch.is_tensor(v):
+                close(orp.state[q][k], v.numpy(), 1e-6, 1e-12, msg=k)
+
+
+def test_replayed_step_refuses_mixed_counts():
+    """One update count a group: a group whose parameters hold two raises."""
+    ps = [torch.nn.Parameter(torch.ones(2)) for _ in range(2)]
+    opt = topt.torch_adam(ps, 1e-3)
+    ps[0].grad = torch.ones(2)
+    opt.step()
+    for p in ps:
+        p.grad = torch.ones(2)
+    with pytest.raises(ValueError, match="one update count a group"):
+        opt.prepare_replay()

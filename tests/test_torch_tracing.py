@@ -204,6 +204,7 @@ RECORDS = [_rec("ardae.sample", W0 + 0.000, W0 + 0.005),
            _rec("ardae.phase_b", W0 + 0.080, W0 + 0.100),
            _rec("ardae.dsm", W0 + 0.250, W0 + 0.260),
            _rec("ardae.phase_b", W0 + 0.370, W0 + 0.390),
+           _rec("ardae.phase_b.replay", W0 + 0.085, W0 + 0.095),  # in the first
            _rec("ardae.upload", W0 + 0.0000, W0 + 0.0004),
            _rec("ardae.upload", W0 + 0.2400, W0 + 0.2410),
            # before the window: left out
@@ -217,11 +218,13 @@ def _expected(config):
     return {"sampling_device_ms": (0.005 + 0.004) * 1e3 / 2,
             "dsm_loss_roofline": 100.0 * dsm_ms / ((0.010 + 0.020) * 1e3),
             "phase_b_idle_ms": (0.060 + 0.001 + 0.080) * 1e3 / 2,
-            "upload_wait_ms": (0.0004 + 0.0010) * 1e3 / 2}
+            "upload_wait_ms": (0.0004 + 0.0010) * 1e3 / 2,
+            "phase_b_graph_pct": 50.0}
 
 
 @pytest.mark.parametrize("metric", ["sampling_device_ms", "dsm_loss_roofline",
-                                    "phase_b_idle_ms", "upload_wait_ms"])
+                                    "phase_b_idle_ms", "upload_wait_ms",
+                                    "phase_b_graph_pct"])
 def test_reader_by_hand(monkeypatch, metric):
     run = _run()
     monkeypatch.setattr(tracing, "recorded", lambda: list(RECORDS))
@@ -239,6 +242,16 @@ def test_readers_leave_the_trace_alone(monkeypatch):
     run = _run()
     before = dataclasses.replace(run.trace)
     monkeypatch.setattr(tracing, "recorded", lambda: list(RECORDS))
-    for metric in ("sampling_device_ms", "dsm_loss_roofline", "phase_b_idle_ms"):
+    for metric in ("sampling_device_ms", "dsm_loss_roofline", "phase_b_idle_ms",
+                   "phase_b_graph_pct"):
         manifest.reader(metric)(run)
     assert run.trace.spans == before.spans == {}
+
+
+def test_graph_share_without_the_graph(monkeypatch):
+    """A port without a phase-B graph (the parent of its reader): None."""
+    from ardae_tpu_torch.train import step
+
+    monkeypatch.setattr(tracing, "recorded", lambda: list(RECORDS))
+    monkeypatch.delattr(step, "PhaseBGraph")
+    assert manifest.reader("phase_b_graph_pct")(_run()) is None
