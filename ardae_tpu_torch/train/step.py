@@ -18,7 +18,11 @@ After each step, ``update_weight_avg`` moves the averaged model (Polyak or
 SWA) in a few ``torch._foreach_*`` passes.
 The step, its index upload and gathers, each phase-A update (its sampling
 pass and its DSM loss) and phase B run inside ``ardae.*`` spans
-(utils/tracing.py), which record only while a profiler records.
+(utils/tracing.py), which record only while a profiler records. Inside the
+sampling pass, the nz-row encoder pass is ``ardae.sample.latents``, with
+the rows it returned counted (``ardae.sample.latents.rows``), and an aux
+model's hidden1a context ``ardae.context``; the lt0 context, a reshape of
+the std-0 encoding, launches nothing and has no span.
 
 Phase B on a CUDA device, with no mesh and under one of the port's own
 optimizers (``train/optim.py`` ``Replayable``), is one CUDA graph
@@ -65,7 +69,7 @@ from ardae_tpu_torch.ops.fused_dsm_grad import (
 )
 from ardae_tpu_torch.parallel.mesh import local
 from ardae_tpu_torch.train.optim import Replayable
-from ardae_tpu_torch.utils.tracing import span
+from ardae_tpu_torch.utils.tracing import count, span
 
 # --use-kernels: each cdae style's hand-written kernel and the guard that
 # decides whether it covers a cdae
@@ -154,7 +158,9 @@ def _sigma_stats(model, x, cfg, generator, latent_eps=None, mesh=None):
     eps = _encoder_noise(model, x, cfg.train_nz_cdae, generator, latent_eps,
                          mesh, True)
     nz = cfg.train_nz_cdae // (1 if mesh is None else mesh.sp)
-    latent = ivae_api.sample_latents(net, x_c, nz, eps=eps).float()
+    with span("ardae.sample.latents"):
+        latent = ivae_api.sample_latents(net, x_c, nz, eps=eps).float()
+        count("ardae.sample.latents.rows", latent.shape[0] * latent.shape[1])
     lsm = cfg.std_scale * (latent - latent_mean)                    # (B,nz,z)
     if mesh is not None and mesh.sp > 1:
         n = cfg.train_nz_cdae
@@ -208,7 +214,8 @@ def cdae_update(model, cdae, opt_d, cfg, x, generator, draws=None, mesh=None):
             elif cfg.ctx_type == "hidden1a":
                 # the std=0 features of the sigma pass's parameters and input, in
                 # its dtype, then fp32 (JAX step.py:157-160)
-                ctx = compute_context(net, x_c, cfg.ctx_type).float()
+                with span("ardae.context"):
+                    ctx = compute_context(net, x_c, cfg.ctx_type).float()
             else:
                 ctx = compute_context(model, x, cfg.ctx_type)
             nz, nstd, zdim = lsm.shape[1], cfg.train_nstd_cdae, lsm.shape[-1]

@@ -10,6 +10,11 @@ the span it ran in), the enclosing span's name and the joint step the
 span belongs to. ``recorded()`` returns the records, ``clear()`` drops
 them.
 
+``count("ardae.sample.latents.rows", n)`` keeps a ``Count`` beside them
+while a profiler records (the name, the number, when on the same clock,
+and the step of the innermost open span) and otherwise costs the same
+one check; ``counted()`` returns them.
+
 The enclosing span is the innermost one open on the same thread. The
 autograd engine runs a CUDA backward on a thread of its own while the
 caller waits in ``backward()``; a span opened there with none of its own
@@ -25,11 +30,18 @@ import torch
 import torch.autograd.profiler as _profiler
 
 Record = collections.namedtuple("Record", "name t0_ns t1_ns parent step")
+Count = collections.namedtuple("Count", "name n t_ns step")
 
 _records = collections.deque(maxlen=1 << 16)
+_counts = collections.deque(maxlen=1 << 16)
 _stacks = {}  # thread ident -> the spans open on it, innermost last
 
 _OFF = contextlib.nullcontext()  # what ``span`` returns while no profiler records
+
+
+def _open(stack):
+    """The spans open on this thread, else on the main thread, else [None]."""
+    return stack or _stacks.get(threading.main_thread().ident) or [None]
 
 
 class _Span:
@@ -40,7 +52,7 @@ class _Span:
 
     def __enter__(self):
         self.stack = _stacks.setdefault(threading.get_ident(), [])
-        outer = self.stack or _stacks.get(threading.main_thread().ident) or [None]
+        outer = _open(self.stack)
         self.parent = outer[-1] and outer[-1].name
         if self.step is None and outer[-1] is not None:
             self.step = outer[-1].step
@@ -66,10 +78,25 @@ def span(name, step=None):
     return _Span(name, step)
 
 
+def count(name, n):
+    """Count ``n`` of ``name`` (rows, items) in the innermost open span's
+    step; nothing while no profiler records."""
+    if not _profiler._is_profiler_enabled:
+        return
+    inner = _open(_stacks.get(threading.get_ident()))[-1]
+    _counts.append(Count(name, int(n), time.time_ns(), inner and inner.step))
+
+
 def recorded():
     """The records kept, in the order their spans ended."""
     return list(_records)
 
 
+def counted():
+    """The counts kept, in the order they were made."""
+    return list(_counts)
+
+
 def clear():
     _records.clear()
+    _counts.clear()

@@ -36,9 +36,10 @@ FLAGS = (
 ).split()
 PARENT = {"ardae.step": None, "ardae.upload": "ardae.step", "ardae.gather": "ardae.step",
           "ardae.phase_a": "ardae.step", "ardae.sample": "ardae.phase_a",
-          "ardae.dsm": "ardae.phase_a", "ardae.phase_b": "ardae.step"}
+          "ardae.dsm": "ardae.phase_a", "ardae.phase_b": "ardae.step",
+          "ardae.sample.latents": "ardae.sample"}
 PER_STEP = {"ardae.step": 1, "ardae.upload": 1, "ardae.gather": 1, "ardae.phase_a": U,
-            "ardae.sample": U, "ardae.dsm": U, "ardae.phase_b": 1}
+            "ardae.sample": U, "ardae.dsm": U, "ardae.phase_b": 1, "ardae.sample.latents": U}
 
 
 def _chunk():
